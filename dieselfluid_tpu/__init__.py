@@ -1,4 +1,4 @@
-"""dieselfluid_tpu — a TPU-native differentiable SPH fluid simulation + rendering framework.
+"""dieselfluid_tpu — a differentiable SPH fluid simulation + rendering framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of andewx/dieselfluid
 (reference surveyed in SURVEY.md): SPH solvers (WCSPH / PCISPH), neighbor search,

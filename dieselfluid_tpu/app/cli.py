@@ -26,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver", choices=["wcsph", "pcisph"], default="wcsph")
     p.add_argument("--neighbors", choices=["cellgrid", "bruteforce", "dense"],
                    default="cellgrid",
-                   help="'dense' = the Pallas dense-cell production path")
+                   help="'dense' = the dense cell-plane production path")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--extent", type=float, default=0.5, help="dam-break column extent")
     p.add_argument("--scene", choices=["dam_break", "lattice"], default="dam_break")
@@ -58,11 +58,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PCISPH: carry pressure across frames (fewer "
                         "correction iterations; deviates from the "
                         "reference's per-frame Press=0 reset)")
-    p.add_argument("--column-skip", action="store_true",
-                   help="dense PCISPH: skip re-sweeping converged regions "
-                        "(tol/10 freeze; parity-tested, but the default "
-                        "plane-resident loop measures faster in every "
-                        "regime — see dense_step.dense_pcisph_step)")
     p.add_argument("--viewer", action="store_true",
                    help="install the WebGL trajectory viewer next to the "
                         "outputs (serve with python -m "
@@ -117,23 +112,24 @@ def _poll_control(path, state_cache):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    import jax
+
     if args.cpu:
-        import jax
-
         jax.config.update("jax_platforms", "cpu")
-
-    import jax.numpy as jnp
 
     from dieselfluid_tpu.config import SimConfig
     from dieselfluid_tpu.io.animation import AnimationWriter
-    from dieselfluid_tpu.io.checkpoint import Checkpointer, load_checkpoint
     from dieselfluid_tpu.models.sph import Simulation
     from dieselfluid_tpu.render.camera import Camera
     from dieselfluid_tpu.render.splat import splat_particles
+    from dieselfluid_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    if args.checkpoint_every or args.resume:
+        from dieselfluid_tpu.io.checkpoint import Checkpointer, load_checkpoint
 
     config = SimConfig(n3=args.n3, solver=args.solver, neighbors=args.neighbors,
-                       warm_start=args.warm_start,
-                       column_skip=args.column_skip)
+                       warm_start=args.warm_start)
     sim = Simulation.create(config, extent=args.extent, scene=args.scene)
     if args.resume:
         state, step, params, cfg = load_checkpoint(args.resume)

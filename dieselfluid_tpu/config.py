@@ -109,9 +109,6 @@ class SimConfig:
     warm_start: bool = False          # PCISPH: carry pressure across frames
                                       # (production knob; the reference
                                       # resets Press each frame, fluid.go:192)
-    column_skip: bool = False         # dense PCISPH: stop re-sweeping
-                                      # converged regions (tol/10 freeze;
-                                      # see dense_step.dense_pcisph_step)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

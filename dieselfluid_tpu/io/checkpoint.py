@@ -14,7 +14,13 @@ from typing import Any, Optional, Tuple
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
+
+try:
+    import orbax.checkpoint as ocp
+except ImportError as e:  # pragma: no cover - depends on the installation
+    raise ImportError(
+        "dieselfluid_tpu.io.checkpoint needs orbax (the orbax-checkpoint "
+        "package) for --checkpoint-every/--resume") from e
 
 from dieselfluid_tpu.config import FluidParams, SimConfig
 from dieselfluid_tpu.models.particles import FluidState

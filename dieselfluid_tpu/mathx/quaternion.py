@@ -6,6 +6,7 @@ leading batch shape, float32 by default, differentiable).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -110,7 +111,8 @@ def rot_mat(q):
 
 def rotate(q, v):
     """Rotate (..., 3) vectors by quaternion(s): q v q^-1."""
-    return jnp.einsum("...ij,...j->...i", rot_mat(q), v)
+    return jnp.einsum("...ij,...j->...i", rot_mat(q), v,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def from_axis_angle(axis, angle):

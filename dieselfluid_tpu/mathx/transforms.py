@@ -7,6 +7,7 @@ Matrices are (..., 4, 4) row-major like the reference's flat Mat.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from dieselfluid_tpu.mathx import quaternion as Q
@@ -46,7 +47,9 @@ def rotate_euler(phi, theta, psi):
 
 def trs(t, r4, s):
     """Translate*Rotate*Scale composite. ref: render/glr/util.go MatrixTRS."""
-    return translate(t) @ r4 @ scale(s)
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(translate(t), r4, precision=hi), scale(s),
+                      precision=hi)
 
 
 def projection(fov_deg: float, aspect: float, near: float, far: float):
@@ -66,8 +69,8 @@ def projection(fov_deg: float, aspect: float, near: float, far: float):
 def apply(m, v):
     """Apply 4x4 to (..., 3) points (w=1), perspective-divide-free."""
     vh = jnp.concatenate([v, jnp.ones(v.shape[:-1] + (1,), v.dtype)], axis=-1)
-    out = jnp.einsum("ij,...j->...i", m, vh)
-    return out
+    return jnp.einsum("ij,...j->...i", m, vh,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def apply_point(m, v):
@@ -85,4 +88,5 @@ def inverse_rigid(m):
     rt = r.T
     m_out = jnp.eye(4, dtype=m.dtype)
     m_out = m_out.at[:3, :3].set(rt)
-    return m_out.at[:3, 3].set(-rt @ t)
+    return m_out.at[:3, 3].set(
+        -jnp.matmul(rt, t, precision=jax.lax.Precision.HIGHEST))

@@ -1,13 +1,13 @@
 """SPH discrete field operators over fixed-degree neighborhoods.
 
-TPU-native re-implementation of the reference's SPHField operator suite
+Array-program re-implementation of the reference's SPHField operator suite
 (ref: model/field/sph_field.go:124-294). Each operator is a fully vectorized
 gather + masked reduction over the (N, K) neighbor table — the reference's
 per-particle Go loops become one fused XLA program; no Python loops anywhere.
 
-TPU LAYOUT RULE: no large (N, K, 3) intermediates. A trailing dimension of 3
-pads to the 128-lane tile (a 42x memory/bandwidth blowup — observed as a
-21 GB allocation for a 64k-particle step before this refactor), so all
+LAYOUT RULE: no large (N, K, 3) intermediates. A trailing dimension of 3
+can pad to an accelerator's wide minor tile (up to a 42x memory/bandwidth
+blowup), so all
 per-neighbor geometry is computed as separate x/y/z (N, K) planes and only
 stacked into (..., 3) at the final per-particle reduction.
 

@@ -1,6 +1,6 @@
 """Particle state as an immutable SoA pytree.
 
-The TPU-native replacement for the reference's mutable SoA ParticleArray
+The array-program replacement for the reference's mutable SoA ParticleArray
 (ref: model/particle_array.go:5-136): positions/velocities/forces/densities/
 pressures live as separate jnp arrays so every solver pass is a fused,
 bandwidth-friendly array program. Boundary particles are carried as a separate

@@ -33,7 +33,7 @@ def build_step_fn(config: SimConfig, params: FluidParams, delta: float = 0.0,
     parameter updates can rebind the jitted step to new params.
     """
     if config.neighbors == "dense":
-        # Pallas dense-cell pipeline (TPU production path)
+        # Dense cell-plane pipeline (the production path)
         from dieselfluid_tpu.ops.cellops import DenseCellSpec
         from dieselfluid_tpu.solvers.dense_step import (
             dense_pcisph_step, dense_wcsph_step)
@@ -43,8 +43,7 @@ def build_step_fn(config: SimConfig, params: FluidParams, delta: float = 0.0,
         if config.solver == "pcisph":
             return lambda s: dense_pcisph_step(s, params, dspec, delta,
                                                collider=collider,
-                                               warm_start=config.warm_start,
-                                               column_skip=config.column_skip)
+                                               warm_start=config.warm_start)
         return lambda s: dense_wcsph_step(s, params, dspec, collider=collider)
 
     if config.neighbors == "cellgrid":

@@ -22,10 +22,10 @@ from dieselfluid_tpu.neighbors.types import Neighborhood
 def pairwise_distances(query: jnp.ndarray, source: jnp.ndarray) -> jnp.ndarray:
     """(N, M) Euclidean distances from direct (N, M, 3) differences.
 
-    The expanded |q|^2+|s|^2-2q.s form would ride the MXU but the TPU's
-    default-bf16 matmul plus catastrophic cancellation costs ~1e-1 absolute
-    error near r ~ h — unacceptable for an oracle. Direct differences are
-    exact f32 on the VPU; this provider is for modest N anyway (the cell grid
+    The expanded |q|^2+|s|^2-2q.s form would ride the matrix units, but a
+    reduced-precision default matmul (bf16/TF32) plus catastrophic
+    cancellation costs ~1e-1 absolute error near r ~ h — unacceptable for an
+    oracle. Direct differences are exact f32; this provider is for modest N anyway (the cell grid
     covers large N).
     """
     d2 = jnp.zeros((query.shape[0], source.shape[0]), jnp.float32)

@@ -1,4 +1,4 @@
-"""Sorted cell-grid neighbor search — the scalable, TPU-native sampler.
+"""Sorted cell-grid neighbor search — the scalable array-program sampler.
 
 Replaces the reference's LSH bucket sampler (ref: sampler/lsh/lsh.go — random
 hyperplane signs -> 255 buckets -> forward-scan 100 samples), which returns
@@ -141,7 +141,7 @@ def cell_grid_neighborhood(
     cand_valid = cand_valid.reshape(n, 27 * c)
 
     # Component-wise distance: no (N, 27C, 3) intermediate — a trailing dim
-    # of 3 pads to 128 lanes on TPU (42x memory blowup at scale).
+    # of 3 can pad to a wide minor tile (up to 42x memory at scale).
     dx = source[:, 0][cand_idx] - query[:, 0:1]
     dy = source[:, 1][cand_idx] - query[:, 1:2]
     dz = source[:, 2][cand_idx] - query[:, 2:3]

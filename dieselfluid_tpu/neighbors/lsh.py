@@ -48,7 +48,8 @@ def hash_vectors(key: jax.Array, spec: LSHSpec) -> jnp.ndarray:
 def lsh_hash(pos: jnp.ndarray, vectors: jnp.ndarray, buckets: int) -> jnp.ndarray:
     """Sign-bit hash mod buckets. ref: lsh.go Hash:102-111 —
     hash = ((hash << 1) + (dot > 0)) % buckets, sgn(x<=0)=0."""
-    bits = (jnp.einsum("nd,hd->nh", pos, vectors) > 0).astype(jnp.int32)
+    dots = jnp.einsum("nd,hd->nh", pos, vectors, precision=jax.lax.Precision.HIGHEST)
+    bits = (dots > 0).astype(jnp.int32)
     weights = 2 ** jnp.arange(vectors.shape[0] - 1, -1, -1, dtype=jnp.int32)
     return jnp.sum(bits * weights, axis=-1) % buckets
 

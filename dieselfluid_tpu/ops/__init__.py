@@ -1,4 +1,4 @@
-"""Compute ops: smoothing kernels, EOS, and Pallas TPU kernels for the hot loops."""
+"""Compute ops: smoothing kernels, EOS, and the dense stencil sweeps of the hot loops."""
 
 from dieselfluid_tpu.ops.smoothing import (  # noqa: F401
     KernelCoeffs,

@@ -1,4 +1,4 @@
-"""Dense cell-grid layout for the Pallas SPH kernels.
+"""Dense cell-grid layout for the SPH stencil sweeps.
 
 Particles are binned into a dense (padded) cell lattice stored as 3D f32
 planes of shape (rows, sub, 128):
@@ -6,14 +6,14 @@ planes of shape (rows, sub, 128):
   * rows = (x, y) cell columns incl. one ghost ring: row = (i+1)*py + (j+1);
   * the z axis (cells * capacity slots) lives in the flattened trailing
     (sub, 128) dims, padded so capacity * z_block == 128 flat slots per
-    sublane-row and ghosted by one z_block on each side.
+    128-slot chunk and ghosted by one z_block on each side.
 
-Why this shape: Mosaic DMA slices on the *leading* dim of a >2D array are
-unconstrained, so a kernel program can stream its 3x3 row stencil with three
-(3, sub, 128) copies per plane; the z sweep then reads dynamic sublane rows
-(probe-verified legal) — no sorts, no global gathers on the hot path. This is
-the TPU-native replacement for the reference's LSH table upload
-(ref: sampler/lsh/lsh.go GetData1D + pcisph.h get_sample's fixed fetch loop).
+Why this shape: every cell's 3x3x3 neighbourhood is nine contiguous slot
+windows (one per neighbouring (x, y) column, spanning the z cells below and
+above), so a sweep reads its candidates with plain strided loads — no
+sorts, no global gathers on the hot path. This replaces the reference's LSH
+table upload (ref: sampler/lsh/lsh.go GetData1D + pcisph.h get_sample's
+fixed fetch loop).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class DenseCellSpec:
 
     @property
     def z_block(self) -> int:
-        """z cells per 128-lane sublane-row (capacity * z_block == 128)."""
+        """z cells per 128-slot chunk (capacity * z_block == 128)."""
         return 128 // self.capacity
 
     @property
@@ -72,7 +72,8 @@ class DenseCellSpec:
 
     @property
     def sub(self) -> int:
-        """Sublane rows per (x,y) column: interior z blocks + one ghost each side."""
+        """128-slot chunks per (x,y) column: interior z blocks + one ghost
+        each side."""
         return self.nz_padded // self.z_block + 2
 
     @property
@@ -125,9 +126,9 @@ def build_planes(values: Dict[str, jnp.ndarray], flat, valid,
                  mask: jnp.ndarray = None) -> Dict[str, jnp.ndarray]:
     """Scatter per-particle channels into dense planes (+ a 'mask' plane).
 
-    One scatter per channel. (A single (N, C) payload scatter + transpose
-    was tried and measured SLOWER on v5e — 102 vs 71 ms at 1M particles —
-    the channel-minor transpose costs more than the extra scatter passes.)
+    One scatter per channel (a single (N, C) payload scatter + transpose
+    was tried on an earlier accelerator and lost: the channel-minor
+    transpose cost more than the extra scatter passes).
 
     Slots are unique by construction (dense_indices assigns one slot per
     valid particle; invalid particles park in DISTINCT trash slots past the
@@ -164,11 +165,11 @@ def slot_particle_map(flat, valid, spec: DenseCellSpec) -> jnp.ndarray:
     scatter-max of invalid particles parked at slot 0 can never shadow a
     real particle.
 
-    NOTE (round-4 measurement): building planes by GATHERING through this
-    map (16M slot-indexed loads from a 1M-element source) costs 2.6 s on
-    v5e — 34x the 78 ms scatter build it was meant to replace; XLA's TPU
-    gather at plane size is catastrophically slower than scatter. Kept for
-    diagnostics/tests only; every production build uses `build_planes`.
+    NOTE: building planes by GATHERING through this map (16M slot-indexed
+    loads from a 1M-element source) measured far slower than the scatter
+    build on an earlier accelerator, and has not been measured on the GPU.
+    Kept for diagnostics/tests only; every production build uses
+    `build_planes`.
     """
     size = spec.rows * spec.row_len
     safe = jnp.where(valid, flat, 0)
@@ -182,8 +183,7 @@ def build_planes_from_map(values: Dict[str, jnp.ndarray], smap: jnp.ndarray,
     """Dense planes (+ 'mask') from per-particle channels via the slot map.
 
     Equivalent to `build_planes` (tested) but gather-based. See the
-    slot_particle_map NOTE: 34x SLOWER than build_planes on v5e at 1M —
-    do not use on the hot path."""
+    slot_particle_map NOTE — do not use on the hot path."""
     occupied = smap >= 0
     src = jnp.where(occupied, smap, 0)
     out = {"mask": occupied.astype(jnp.float32).reshape(spec.plane_shape)}

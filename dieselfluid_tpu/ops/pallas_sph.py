@@ -1,39 +1,37 @@
-"""Pallas TPU kernels for the SPH hot loops: density + forces over dense cells.
+"""The SPH hot loops: density + forces as stencil sweeps over dense cells.
 
-TPU-native re-design of the reference's GPU kernels (ref: data/shaders/
-opencl/pcisph/pci_density.c, pci_predict.c, data/shaders/glsl/pcisph/
-pcisph_kern0/1.comp): instead of per-particle LSH table fetches (pcisph.h
-get_sample's fixed 150-iteration loop), each Pallas program owns one (x, y)
-cell COLUMN of the dense 3D layout (ops/cellops.py): it DMAs its 3x3 column
-stencil into VMEM (three leading-dim copies per plane) and sweeps the z axis
-one 128-slot sublane-row block at a time — all in VMEM, no sorts, no global
-gathers, no top_k.
+Re-design of the reference's GPU kernels (ref: data/shaders/opencl/pcisph/
+pci_density.c, pci_predict.c, data/shaders/glsl/pcisph/pcisph_kern0/1.comp):
+instead of per-particle LSH table fetches (pcisph.h get_sample's fixed
+150-iteration loop), every slot of the dense cell layout (ops/cellops.py)
+meets the slots of its 3x3x3 cell neighbourhood directly — no sorts, no
+global gathers, no top_k.
 
 Everything here is an instantiation of ONE generic `stencil sweep`:
 
     out_c[i] = own_mask[i] * sum_j pair_fn(own[i], cand[j])_c
 
-over the 27-cell neighborhood, where `pair_fn` is a pure elementwise function
-of broadcastable own (128, 1) / candidate (1, L) channel dicts. Density,
-forces, and BOTH backward passes are just different pair functions; the
-backward pair function is derived from the forward one with `jax.vjp` inside
-the kernel (the adjoint of a symmetric pairwise sum is another pairwise sum
+over the 27-cell neighbourhood, where `pair_fn` is a pure elementwise
+function of broadcastable own (..., B, 1) / candidate (..., 1, W) channel
+dicts. Density, forces, and BOTH backward passes are just different pair
+functions; the backward pair function is derived from the forward one with
+`jax.vjp` (the adjoint of a symmetric pairwise sum is another pairwise sum
 with receiver/source roles swapped), so the public ops are `jax.custom_vjp`
 functions and the dense pipeline differentiates end-to-end.
 
-Tile shaping (round-4): the sweep is VPU-bound, broadcasts are free, and
-per-pair lane movement is the one thing the VPU punishes — so each z row
-is processed as broadcast blocks (own slots down the sublane axis, ONE
-extended candidate row window per stencil neighbor along the lane axis;
-half-row blocks for wide pairs, full-row for narrow ones — see _sweep).
-Cell edge >= h makes the d2 < h^2 test exclude non-adjacent cells inside
-the window automatically.
+The sweep has two implementations with one contract, chosen when the
+program is lowered (`jax.lax.platform_dependent`), never at run time:
 
-Mosaic workaround (round-1 fault): DMA slices MUST spell out every axis with
-`pl.ds(...)` — `ref.at[pl.ds(r, 3), :, :]` mis-lowers for sublane dims that
-are not tile-aligned (sub >= 5) and runtime-faults with `INTERNAL: TPU
-backend error`; `ref.at[pl.ds(r, 3), pl.ds(0, sub), pl.ds(0, 128)]` is
-correct. Verified on v5e.
+  * `_sweep_triton` (CUDA): a Pallas kernel through Triton. One program per
+    (x, y) cell column and 128-slot z chunk, looping over own blocks of a
+    few cells; a block with no particle (or a ghost column) writes zeros
+    and skips the pair math, so the sweep pays for occupied cells only.
+    Each sweep kind has its own launch (`_TRITON_LAUNCH`).
+  * `_sweep_xla` (every other platform): plain jnp over the whole plane —
+    the reference on the DenseCellSpec layout, and what CPU tests run.
+
+Cell edge >= h makes the d2 < h^2 test exclude the non-adjacent cells that a
+candidate window may span automatically.
 
 Self term: the (i,i) pair has r = 0 and contributes m*W0 to density —
 matching field.density_with_self — and exactly zero force (masked rsqrt).
@@ -42,374 +40,186 @@ matching field.density_with_self — and exactly zero force (masked rsqrt).
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from dieselfluid_tpu.ops.cellops import DenseCellSpec
 from dieselfluid_tpu.ops.smoothing import KernelCoeffs
 
 _EPS = 1e-12
 
-# Varying-mesh-axes annotation for sweep outputs. Under jax.shard_map with
-# check_vma=True a pallas_call must declare how its outputs vary over mesh
-# axes (jax 0.9 ShapeDtypeStruct vma=...); sharded callers wrap their kernel
-# calls in `with sweep_vma(AXIS):` so the rest of their collective logic
-# keeps the vma checker ON (round-2 verdict, weak #7). threading.local so
-# concurrent traces on other threads cannot observe this thread's setting
-# (round-3 advisor finding). The custom-VJP *backward* sweeps trace during
-# TRANSPOSITION, outside the forward call site — differentiated sharded
-# callers must extend the context over the jax.grad/vjp CALL itself
-# (`with sweep_vma(AXIS): g = jax.grad(loss)(x)`), which this thread-local
-# supports because transposition runs on the tracing thread.
-import threading
-
-_SWEEP_TLS = threading.local()
-
-
-from contextlib import contextmanager
-
-
-@contextmanager
-def sweep_vma(*axes):
-    prev = getattr(_SWEEP_TLS, "vma", None)
-    _SWEEP_TLS.vma = frozenset(axes)
-    try:
-        yield
-    finally:
-        _SWEEP_TLS.vma = prev
-
-
-def _current_vma():
-    return getattr(_SWEEP_TLS, "vma", None)
-
-
 # ---------------------------------------------------------------------------
 # Generic stencil sweep
 # ---------------------------------------------------------------------------
 
 
-def _col(v):
-    """(1, L) row -> (L, 1) column (Mosaic supports this transpose)."""
-    return jnp.transpose(v, (1, 0))
+# Pair terms the plain sweep evaluates per step of its column loop: bounds
+# its memory whether or not XLA fuses the pair math into the reduction.
+_XLA_PAIRS_PER_STEP = 1 << 25
 
 
-def active_patch_shape(spec: DenseCellSpec) -> Tuple[int, int]:
-    """Shape of the per-patch activity grid accepted by the sweeps' `active`
-    argument: one int32 per (x, y-patch) grid program."""
-    P = min(8, spec.ny)
-    return (spec.nx, -(-spec.ny // P))
+def _sweep_xla(pair_fn: Callable, in_names: Sequence[str], n_out: int,
+               planes: Sequence[jnp.ndarray], spec: DenseCellSpec):
+    """Plain-jnp stencil sweep: n_out plane_shape planes of per-slot sums.
+
+    Each plane is viewed as (px, py, z cells, capacity). For one interior
+    (x, y) column, every cell's own slots meet the slots of its 27
+    neighbour cells, concatenated along one candidate axis, and the pair
+    terms are summed over that axis (a (..., 1) term — `_bwd_pair` already
+    summed it over the candidates — sums to itself). `lax.map` runs the
+    column function over batches of columns sized to `_XLA_PAIRS_PER_STEP`
+    pair terms.
+    Ghost columns, ghost z blocks and empty slots are zero."""
+    px, py, cap, zb = spec.px, spec.py, spec.capacity, spec.z_block
+    nx, ny, nzi = spec.nx, spec.ny, spec.nz_padded
+    cells = [p.reshape(px, py, spec.sub * zb, cap) for p in planes]
+
+    def column(c):
+        i, j = c // ny + 1, c % ny + 1
+        own, cand = {}, {}
+        for n, a in zip(in_names, cells):
+            cols = {(dx, dy): jax.lax.dynamic_slice(
+                a, (i + dx, j + dy, 0, 0), (1, 1) + a.shape[2:])[0, 0]
+                for dx in (-1, 0, 1) for dy in (-1, 0, 1)}
+            own[n] = cols[0, 0][zb:zb + nzi, :, None]
+            cand[n] = jnp.concatenate(
+                [cols[dx, dy][zb + dz:zb + nzi + dz]
+                 for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                 for dz in (-1, 0, 1)], axis=-1)[:, None, :]
+        live = own["mask"][..., 0] > 0
+        return tuple(jnp.where(live, jnp.sum(c, axis=-1), 0.0)
+                     for c in pair_fn(own, cand))
+
+    batch = max(1, _XLA_PAIRS_PER_STEP // (nzi * cap * 27 * cap))
+    outs = jax.lax.map(column, jnp.arange(nx * ny, dtype=jnp.int32),
+                       batch_size=min(batch, nx * ny))
+    return [jnp.pad(o.reshape(nx, ny, nzi, cap),
+                    ((1, 1), (1, 1), (zb, zb), (0, 0))).reshape(
+                        spec.plane_shape) for o in outs]
+
+
+# Triton launch of each sweep kind: (own block, num_warps, wide). `wide`
+# keeps one (B, W) accumulator per output and reduces it once per block —
+# the cheaper form for light pair functions; heavier ones (velocity
+# channels, every backward pair) spill registers that way and instead sum
+# each window into (B,) accumulators. Chosen by timing each sweep on an
+# H100 80GB HBM3 (700 W) at the 1M dam break, capacity 32
+# (tools/sweep_ab.py; PERF.md).
+_TRITON_LAUNCH = {
+    "density": (64, 8, True),
+    "pressure": (64, 16, True),
+    "force": (32, 16, False),
+}
+
+
+def _sweep_triton(pair_fn: Callable, in_names: Sequence[str], n_out: int,
+                  planes: Sequence[jnp.ndarray], spec: DenseCellSpec,
+                  block: int = 32, num_warps: int = 16, wide: bool = False,
+                  interpret: bool = False):
+    """`_sweep_xla`'s contract as a Pallas kernel through Triton.
+
+    Grid: one program per (column row, 128-slot z chunk); the program loops
+    over the chunk's own blocks of B = max(block, capacity) slots (whole
+    cells). A live block loads its own channels as (B, 1) columns and, for
+    each of the 9 (x, y) neighbour columns, a (1, W) candidate window from
+    one cell below the block to one cell above it (W = B + 2 * capacity
+    rounded up to a power of two for Triton; masked at the column ends),
+    and accumulates the pair terms in registers: per window into (B,)
+    sums, or with `wide` into (B, W) sums reduced once per block (a
+    (B, 1) term — `_bwd_pair` already summed it — is never widened).
+    Blocks that hold no particle, and every block of a ghost column, store
+    zeros without touching the other channels."""
+    cap, L, py = spec.capacity, spec.row_len, spec.py
+    B = max(block, cap)
+    W = 1 << (B + 2 * cap - 1).bit_length()
+    n_in = len(in_names)
+    m_idx = list(in_names).index("mask")
+    per_chunk = 128 // B
+
+    def kernel(*refs):
+        in_refs, out_refs = refs[:n_in], refs[n_in:]
+        r = pl.program_id(0)
+        chunk = pl.program_id(1)
+        i, j = r // py, r % py
+        interior = (i >= 1) & (i <= spec.nx) & (j >= 1) & (j <= spec.ny)
+        lane = jnp.arange(B, dtype=jnp.int32)
+        wl = jnp.arange(W, dtype=jnp.int32)
+
+        def own_block(b, carry):
+            lo = chunk * 128 + b * B
+            own_idx = r * L + lo + lane
+            om = plgpu.load(in_refs[m_idx].at[own_idx])
+            live = interior & (jnp.max(om) > 0.0)
+
+            def compute():
+                own = {n: plgpu.load(in_refs[p].at[own_idx])[:, None]
+                       for p, n in enumerate(in_names) if p != m_idx}
+                own["mask"] = om[:, None]
+                zc = lo - cap + wl
+                ok = (wl < B + 2 * cap) & (zc >= 0) & (zc < L)
+                acc = [None] * n_out
+                for dx in (-1, 0, 1):
+                    for dy in (-1, 0, 1):
+                        nb = (r + dx * py + dy) * L + zc
+                        cand = {n: plgpu.load(in_refs[p].at[nb], mask=ok,
+                                              other=0.0)[None, :]
+                                for p, n in enumerate(in_names)}
+                        for o, c in enumerate(pair_fn(own, cand)):
+                            if not (wide and c.shape[-1] == W):
+                                c = jnp.sum(c, axis=1)
+                            acc[o] = c if acc[o] is None else acc[o] + c
+                return tuple(
+                    jnp.where(om > 0.0,
+                              a if a.ndim == 1 else jnp.sum(a, axis=1), 0.0)
+                    for a in acc)
+
+            def skip():
+                return tuple(jnp.zeros((B,), jnp.float32)
+                             for _ in range(n_out))
+
+            res = jax.lax.cond(live, compute, skip)
+            for o in range(n_out):
+                plgpu.store(out_refs[o].at[own_idx], res[o])
+            return carry
+
+        jax.lax.fori_loop(0, per_chunk, own_block, 0)
+
+    vma = frozenset().union(*(jax.typeof(p).vma for p in planes))
+    size = spec.rows * L
+    outs = pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((size,), jnp.float32, vma=vma)]
+        * n_out,
+        grid=(spec.rows, spec.sub),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="dense_stencil_sweep",
+    )(*[p.reshape(size) for p in planes])
+    return [o.reshape(spec.plane_shape) for o in outs]
 
 
 def _sweep(pair_fn: Callable, in_names: Sequence[str], n_out: int,
            planes: Sequence[jnp.ndarray], spec: DenseCellSpec,
-           active: jnp.ndarray = None, scheme: str = None,
-           patch_p: int = None):
-    """Run `pair_fn` over the 3x3-column z-swept stencil; n_out (rows,sub,128)
-    planes of per-slot sums (rows the sweep skipped — empty columns/patches
-    and ghost rows — hold garbage; callers sanitize with the mask plane).
-
-    Each program owns a PATCH of P consecutive y-columns at one x (P=8):
-    its stencil is 3 x-groups x (P+2) y-rows, fetched as three contiguous
-    leading-dim DMAs per channel — 3(P+2)/P ~ 3.75 rows fetched per own
-    column instead of the 9 of the naive per-column stencil, and 1/P the DMA
-    issue count. Outputs accumulate in a (P, sub, 128) scratch and leave in
-    ONE contiguous DMA per plane. The per-column compute is a fori_loop with
-    dynamic LEADING-dim scratch addressing (legal in Mosaic; only dynamic
-    *sublane* addressing is not — round-1 fault, see module docstring).
-
-    Tile shaping (round-4): each 128-slot z row is processed as TWO
-    HALF-ROW blocks — own = a (64, 1) column of slots, candidates = ONE
-    (1, 64 + 2*capacity) row window spanning the half row plus the single
-    geometrically adjacent z cell on each side. The pair op broadcasts
-    (64, 1) x (1, 96) into 8 vregs, 16 per row-pair, vs 48 for the round-3
-    scheme (full-row own against center row + two cap-lane edge windows,
-    each lane-padded to 128) — a 3x VPU-work cut with NO per-pair lane
-    movement: window concats/slices happen once per half on (1, L) rows
-    (1 sublane), and VPU broadcasts are free. (A funnel-shift slab variant
-    that lane-shifted full 16-sublane-tile arrays per z offset compiled
-    for 20 minutes and ran 8x SLOWER — wide-array lane movement is the one
-    thing Mosaic/VPU punish.) Cell edge >= h makes the d2 < h^2 test
-    exclude non-adjacent cells inside the window automatically."""
-    py, sub, cap = spec.py, spec.sub, spec.capacity
-    n_in = len(in_names)
-    nblk = sub - 2
-    # patch_p: own-columns per grid program (perf experiments only; the
-    # active-grid callers assume the default 8 — active_patch_shape).
-    P = min(patch_p or 8, spec.ny)
-    assert cap <= 64, "half-row windows assume capacity <= 64"
-    if scheme is None:
-        # v5e A/B (1M, cap 16): cheap/narrow pairs are overhead-bound and
-        # prefer one full-row block (density 38 vs 47 ms, press-only 64 vs
-        # 69); wide/expensive pairs are compute-bound and prefer half-row
-        # blocks (fused force 82 vs 114 ms).
-        scheme = "half" if n_in >= 7 else "full"
-
-    n_args = n_in + (1 if active is not None else 0)
-    npatch = -(-spec.ny // P)
-    total = spec.nx * npatch
-
-    def kernel(*refs):
-        in_refs = refs[:n_in]
-        act_ref = refs[n_in] if active is not None else None
-        out_refs = refs[n_args:n_args + n_out]
-        scratch = refs[n_args + n_out:n_args + n_out + n_in]
-        accs = refs[n_args + n_out + n_in:n_args + n_out + n_in + n_out]
-        in_sems, out_sems = refs[-2], refs[-1]
-
-        i = pl.program_id(0)
-        jb = pl.program_id(1)
-        # Clamp the last (partial) patch so it always covers P columns;
-        # overlapped columns are recomputed with identical results.
-        oy = jnp.minimum(jb * P, spec.ny - P)
-        m_idx = in_names.index("mask")
-
-        # Cross-patch DOUBLE BUFFERING (round-4 roofline follow-up, round-3
-        # verdict next-step #2): grid programs run sequentially on the core,
-        # so each patch prefetches the NEXT patch's full stencil into the
-        # other scratch slot before waiting on its own — the 3*n_in copies'
-        # issue+latency overlap the current patch's pair math instead of
-        # serializing ahead of it. Every channel is now fetched for every
-        # patch (the old mask-first skip of dead patches' channel DMAs is
-        # gone) — at 23% row occupancy that is ~3x the DMA *bytes*, but the
-        # sweep is VPU-bound ~40x above the HBM bound (BENCH_DETAILS
-        # roofline_dense_1m), so the extra asynchronous bytes are free.
-        # MEASURED (v5e, 1M, cap 16): density 39.6 -> 39.1 ms, fused force
-        # 83.3 -> 84.9 — i.e. NEUTRAL: per-patch DMA latency was already
-        # hidden by the batched start-all-then-wait issue, experimentally
-        # confirming the roofline's verdict that the remaining gap to the
-        # VPU bound is pair-math + control-flow overhead, not memory.
-        # Kept: it removes the per-patch latency term structurally (matters
-        # as patches shrink on sharded slabs) at zero measured cost.
-        # Compute skipping for empty/inactive patches is unchanged.
-        linear = i * npatch + jb
-        slot = jax.lax.rem(linear, 2)
-        nxt = jax.lax.rem(linear + 1, 2)
-
-        def patch_dmas(lt, s):
-            """Stencil copies of patch index `lt` into scratch slot `s`."""
-            ti = lt // npatch
-            toy = jnp.minimum((lt % npatch) * P, spec.ny - P)
-            return [
-                pltpu.make_async_copy(
-                    in_refs[p].at[pl.ds((ti + gx) * py + toy, P + 2),
-                                  pl.ds(0, sub), pl.ds(0, 128)],
-                    scratch[p].at[s, gx, pl.ds(0, P + 2), pl.ds(0, sub),
-                                  pl.ds(0, 128)],
-                    in_sems.at[s, p, gx],
-                )
-                for p in range(n_in) for gx in range(3)
-            ]
-
-        # Active-gated callers (PCISPH convergence skipping): inactive
-        # patches start NO channel DMAs and wait on none — the per-iteration
-        # DMA traffic shrinks with the active set again (advisor round 4:
-        # the unconditional prefetch was ~3x the bytes at low occupancy —
-        # free on one chip where the sweep is VPU-bound 40x over the HBM
-        # bound, but unbounded for sparser or bandwidth-constrained sharded
-        # slabs). Start/wait gates read the SAME SMEM act_ref entry, so a
-        # skipped start can never strand a waiter; slot reuse is safe
-        # because an inactive patch touches neither scratch slot.
-        if active is not None:
-            def act_of(lt):
-                # Clamp: the condition operand is evaluated even when the
-                # guarding `linear + 1 < total` is false (last program).
-                lt = jnp.minimum(lt, total - 1)
-                return act_ref[lt // npatch, lt % npatch] > 0
-        else:
-            def act_of(lt):
-                return jnp.bool_(True)
-
-        @pl.when((linear == 0) & act_of(linear))
-        def _warm():
-            for d in patch_dmas(linear, slot):
-                d.start()
-
-        @pl.when((linear + 1 < total) & act_of(linear + 1))
-        def _prefetch():
-            for d in patch_dmas(linear + 1, nxt):
-                d.start()
-
-        @pl.when(act_of(linear))
-        def _wait_own():
-            for d in patch_dmas(linear, slot):
-                d.wait()
-
-        # A patch with no particles in any own column skips all compute —
-        # the dense layout's occupancy is data-dependent (a dam break fills
-        # an eighth of the domain). `active` adds a caller-controlled
-        # per-patch gate on top (PCISPH convergence skipping): a skipped
-        # patch's output is GARBAGE, so active-gated callers must select
-        # per-particle results against their carried previous values —
-        # sweep INPUTS stay exact everywhere, so swept patches compute
-        # exactly what an ungated sweep would (round-3 verdict, next-step #1).
-        patch_any = jnp.max(scratch[m_idx][slot, 1, 1:P + 1]) > 0.0
-        if active is not None:
-            patch_any = patch_any & (act_ref[i, jb] > 0)
-
-        @pl.when(patch_any)
-        def _patch():
-
-            def col_body(c, _):
-                own_any = jnp.max(scratch[m_idx][slot, 1, c + 1]) > 0.0
-
-                @pl.when(own_any)
-                def _column():
-                    # Static z sweep: nblk is small, so unroll with static
-                    # sublane indices (dynamic SUBLANE addressing inside
-                    # fori_loop faulted on hardware in round 1).
-                    for kb in range(nblk):
-                        row_m = scratch[m_idx][slot, 1, c + 1, kb + 1:kb + 2, :]
-
-                        @pl.when(jnp.max(row_m) > 0.0)
-                        def _row(kb=kb):
-                            row = {n: scratch[p][slot, 1, c + 1,
-                                                 kb + 1:kb + 2, :]
-                                   for p, n in enumerate(in_names)}
-                            # Extended candidate windows, one per stencil
-                            # neighbor: the full z row plus the single
-                            # geometrically adjacent z cell on each side
-                            # (1, 128 + 2*cap). Built once per live row and
-                            # sliced by both half blocks.
-                            exts = []
-                            for gx in range(3):
-                                for dy in range(3):
-                                    exts.append({
-                                        n: jnp.concatenate([
-                                            scratch[p][slot, gx, c + dy,
-                                                       kb:kb + 1,
-                                                       128 - cap:128],
-                                            scratch[p][slot, gx, c + dy,
-                                                       kb + 1:kb + 2, :],
-                                            scratch[p][slot, gx, c + dy,
-                                                       kb + 2:kb + 3, 0:cap],
-                                        ], axis=1)
-                                        for p, n in enumerate(in_names)})
-
-                            if scheme == "full":
-                                blocks = ((0, 128),)
-                            else:
-                                blocks = ((0, 64), (64, 64))
-                            for lo, bw in blocks:
-                                own = {n: _col(v[:, lo:lo + bw])
-                                       for n, v in row.items()}
-
-                                @pl.when(jnp.max(own["mask"]) > 0.0)
-                                def _block(kb=kb, lo=lo, bw=bw, own=own):
-                                    ww = bw + 2 * cap
-                                    # Two accumulators: elementwise pair
-                                    # functions emit (bw, ww) and get ONE
-                                    # deferred lane reduction per block;
-                                    # _bwd_pair emits (bw, 1) — its jax.vjp
-                                    # already reduced over the window, and
-                                    # adding it into a (bw, ww) accumulator
-                                    # would broadcast-inflate the gradient
-                                    # by exactly ww (round-4 bug, caught by
-                                    # the O(N^2)-reference VJP micro test).
-                                    acc = [jnp.zeros((bw, ww), jnp.float32)
-                                           for _ in range(n_out)]
-                                    acc1 = [jnp.zeros((bw, 1), jnp.float32)
-                                            for _ in range(n_out)]
-                                    for ext in exts:
-                                        cand = {n: v[:, lo:lo + ww]
-                                                for n, v in ext.items()}
-                                        contrib = pair_fn(own, cand)
-                                        for o in range(n_out):
-                                            if contrib[o].shape[1] == 1:
-                                                acc1[o] = acc1[o] + contrib[o]
-                                            else:
-                                                acc[o] = acc[o] + contrib[o]
-                                    own_m = own["mask"]
-                                    for o in range(n_out):
-                                        s = acc1[o] + jnp.sum(
-                                            acc[o], axis=1, keepdims=True)
-                                        accs[o][c, kb + 1:kb + 2,
-                                                lo:lo + bw] = _col(s * own_m)
-
-                return 0
-
-            jax.lax.fori_loop(0, P, col_body, 0)
-
-            for o in range(n_out):
-                d = pltpu.make_async_copy(
-                    accs[o].at[pl.ds(0, P), pl.ds(0, sub), pl.ds(0, 128)],
-                    out_refs[o].at[pl.ds((i + 1) * py + oy + 1, P),
-                                   pl.ds(0, sub), pl.ds(0, 128)],
-                    out_sems.at[o],
-                )
-                d.start()
-                d.wait()
-
-    import numpy as np
-
-    shape = jax.ShapeDtypeStruct(spec.plane_shape, jnp.float32,
-                                 vma=_current_vma())
-    args = list(planes)
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY)] * n_in
-    if active is not None:
-        assert active.shape == active_patch_shape(spec), active.shape
-        args.append(active)
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-    # Scoped-VMEM budget check (advisor round 4): double buffering holds
-    # 2 x 3 x (P+2) x sub x 128 f32 per input channel plus the n_out
-    # accumulators; the widest BACKWARD sweep (~12 channels) additionally
-    # stacks ~20M of vjp temporaries. Under the 100M cap that bounds
-    # sub <= ~200 (nz <= ~1580 cells at capacity 16) — far past any
-    # realistic domain aspect, but fail LOUDLY with the fallback named
-    # rather than letting Mosaic reject the kernel cryptically.
-    VJP_STACK_BYTES = 24 * 2**20
-    scratch_bytes = (n_in * 2 * 3 * (P + 2) * sub * 128 * 4
-                     + n_out * P * sub * 128 * 4)
-    assert scratch_bytes + VJP_STACK_BYTES <= 100 * 1024 * 1024, (
-        f"sweep scratch {scratch_bytes/2**20:.0f}M + ~24M vjp stack exceeds "
-        "the 100M scoped-VMEM cap: shrink the domain's z depth (sub="
-        f"{sub}) or switch this sweep to single-buffered DMAs")
-    outs = pl.pallas_call(
-        kernel,
-        grid=(spec.nx, pl.cdiv(spec.ny, P)),
-        in_specs=in_specs,
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY)] * n_out,
-        out_shape=[shape] * n_out,
-        scratch_shapes=(
-            [pltpu.VMEM((2, 3, P + 2, sub, 128), jnp.float32)
-             for _ in range(n_in)]
-            + [pltpu.VMEM((P, sub, 128), jnp.float32) for _ in range(n_out)]
-            + [pltpu.SemaphoreType.DMA((2, n_in, 3)),
-               pltpu.SemaphoreType.DMA((n_out,))]
-        ),
-        # vmem_limit: the default 16M scoped cap rejects the BACKWARD sweeps'
-        # stack (the vjp-derived pair expression holds ~20M of temporaries at
-        # any size — round-2 verdict, weak #1); v5e has 128M physical VMEM, so
-        # raise the cap high enough for scratch + stack with double-buffering
-        # headroom.
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-            vmem_limit_bytes=100 * 1024 * 1024,
-            # The cross-patch double buffering ASSUMES grid programs execute
-            # strictly sequentially in linear order on one core (each patch
-            # prefetches its successor's stencil and waits on a semaphore
-            # its predecessor signalled). Pin that contract: "arbitrary"
-            # forbids the compiler from parallelizing grid dimensions (a
-            # Megacore platform or a future default change would otherwise
-            # race the two scratch slots) — advisor round 4.
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(*args)
-    # The sweep never writes the ghost ROWS of its outputs (no program owns
-    # them), so they hold uninitialized garbage. Single-chip callers kill
-    # them via the mask plane (ghost mask is 0), but SHARDED callers
-    # exchange the mask into ghost columns — mask>0 there would keep
-    # NaN-garbage alive, which the forward never reads but scale-factor
-    # gradients reduce over (0 * NaN poisoned the distributed mu grad).
-    # Zero the border here, once, for every consumer.
-    r = np.arange(spec.rows)
-    interior = ((r // py >= 1) & (r // py <= spec.nx)
-                & (r % py >= 1) & (r % py <= spec.ny))
-    border = jnp.asarray(interior.reshape(spec.rows, 1, 1))
-    return [jnp.where(border, o, 0.0) for o in outs]
+           kind: str = "force"):
+    """The production sweep: the Triton kernel (launched as
+    `_TRITON_LAUNCH[kind]`; backward sweeps use the "force" launch) where
+    the program is lowered for CUDA, `_sweep_xla` elsewhere (a
+    lowering-time choice)."""
+    block, num_warps, wide = _TRITON_LAUNCH[kind]
+    outs = jax.lax.platform_dependent(
+        *planes,
+        cuda=lambda *p: tuple(_sweep_triton(
+            pair_fn, in_names, n_out, p, spec, block=block,
+            num_warps=num_warps, wide=wide)),
+        default=lambda *p: tuple(_sweep_xla(pair_fn, in_names, n_out, p,
+                                            spec)))
+    return list(outs)
 
 
 def _bwd_pair(pair_fn: Callable, n_out: int, grad_names: Sequence[str]):
@@ -454,7 +264,7 @@ _D_IN = ("x", "y", "z", "mask")
 def _density_pair(k: KernelCoeffs):
     """MASS-FREE kernel sum: the mass scale is applied OUTSIDE the sweep
     (density_planes), so `mass` can be a traced Materials scalar and its
-    gradient flows through plain XLA (round-2 verdict, next-step #2)."""
+    gradient flows through plain XLA."""
     a_w, h2 = float(k.a), float(k.h) ** 2
 
     def pair(own, cand):
@@ -473,7 +283,7 @@ def _density_pair(k: KernelCoeffs):
 def _density_sum(planes: Dict[str, jnp.ndarray], spec: DenseCellSpec,
                  k: KernelCoeffs) -> jnp.ndarray:
     (s,) = _sweep(_density_pair(k), _D_IN,
-                  1, [planes[n] for n in _D_IN], spec)
+                  1, [planes[n] for n in _D_IN], spec, kind="density")
     return _mask_where(planes["mask"], s)
 
 
@@ -552,7 +362,7 @@ _F_GRAD_P = ("x", "y", "z", "rho", "press")
 
 # Prefolded fused-force channels: pq = press/max(rho,eps)^2 and
 # iv = 1/max(rho,eps) are PER-SLOT quantities, so folding them outside the
-# sweep removes all three per-pair divides (each a multi-op VPU sequence)
+# sweep removes all three per-pair divides
 # from the hot pair function — same channel count (9), strictly less math.
 # Forward-only: the custom-VJP backward below still sweeps the original
 # rho/press-channel pair function (the folded forward is algebraically
@@ -599,20 +409,19 @@ def force_planes(planes: Dict[str, jnp.ndarray], rho_plane, press_plane,
 
     The forward runs the PREFOLDED pair (pq/iv per-slot folds built as free
     elementwise plane math; no per-pair divides); the backward sweeps the
-    original rho/press-channel pair — same math, same clamps (round-4
-    measurement: folded fused force 67 -> see BENCH_DETAILS roofline)."""
+    original rho/press-channel pair — same math, same clamps."""
     m = planes["mask"]
     rho_c = jnp.maximum(rho_plane, _EPS)
     pq = jnp.where(m > 0, press_plane / (rho_c * rho_c), 0.0)
     ins = dict(planes)
     ins["pq"] = pq
     if mu == 0.0:
-        names = _F_IN_FOLD_P
+        names, kind = _F_IN_FOLD_P, "pressure"
     else:
-        names = _F_IN_FOLD
+        names, kind = _F_IN_FOLD, "force"
         ins["iv"] = jnp.where(m > 0, 1.0 / rho_c, 0.0)
     fx, fy, fz = _sweep(_force_fold_pair(k, mass, mu), names,
-                        3, [ins[n] for n in names], spec)
+                        3, [ins[n] for n in names], spec, kind=kind)
     return _mask_where(m, fx), _mask_where(m, fy), _mask_where(m, fz)
 
 
@@ -686,7 +495,7 @@ def _press_sum(planes, rho_plane, press_plane, spec: DenseCellSpec,
     ins = dict(planes)
     ins["rho"], ins["press"] = rho_plane, press_plane
     fx, fy, fz = _sweep(_press_pair(k), _P_IN, 3,
-                        [ins[n] for n in _P_IN], spec)
+                        [ins[n] for n in _P_IN], spec, kind="pressure")
     m = planes["mask"]
     return _mask_where(m, fx), _mask_where(m, fy), _mask_where(m, fz)
 
@@ -795,7 +604,7 @@ def viscosity_force_planes(planes, rho_plane, spec: DenseCellSpec,
 # The symmetric pressure coefficient p_i/rho_i^2 + p_j/rho_j^2 is a sum of
 # PER-SLOT quantities: folding pq = p/rho_ff^2 into one plane outside the
 # sweep drops the press kernel from 6 input channels to 5 and removes both
-# per-pair divides (multi-op on the VPU) — and distributed callers exchange
+# per-pair divides — and distributed callers exchange
 # ONE ghost plane per correction iteration instead of two. Forward-only
 # (the correction while_loop is not differentiated; the unrolled grad path
 # uses the rho/press-channel sweeps above).
@@ -823,49 +632,14 @@ def _press_pq_pair(k: KernelCoeffs):
 
 
 def pressure_force_pq_planes(planes, pq_plane, spec: DenseCellSpec,
-                             k: KernelCoeffs, mass, active=None):
+                             k: KernelCoeffs, mass):
     """Pressure force from a prefolded pq = press/rho_ff^2 plane; the mass^2
     scale applies outside (mass may be traced). Same math as
     pressure_force_planes given pq built with the same clamped divisor."""
     ins = dict(planes)
     ins["pq"] = pq_plane
     fx, fy, fz = _sweep(_press_pq_pair(k), _PQ_IN, 3,
-                        [ins[n] for n in _PQ_IN], spec, active=active)
-    m = planes["mask"]
-    m2 = mass * mass
-    return (m2 * _mask_where(m, fx), m2 * _mask_where(m, fy),
-            m2 * _mask_where(m, fz))
-
-
-# ---------------------------------------------------------------------------
-# Active-gated sweeps — PCISPH convergence skipping (forward-only)
-# ---------------------------------------------------------------------------
-#
-# The PCISPH correction loop converges non-uniformly: after the first
-# iteration most of the domain satisfies the density-error tolerance and
-# only the agitated front needs more sweeps (the reference's global loop,
-# pcisph.h pressure_solve:266-293, still recomputes every particle). These
-# wrappers gate each (x, y-patch) grid program on a caller-supplied int32
-# activity grid (`active_patch_shape(spec)`): skipped patches' outputs are
-# GARBAGE and the caller must select gathered results against carried
-# values per particle. No custom_vjp — the gated path is the while_loop
-# (forward-only) solver; the differentiable unrolled path runs ungated.
-
-
-def density_planes_active(planes, spec: DenseCellSpec, k: KernelCoeffs,
-                          mass, active) -> jnp.ndarray:
-    (s,) = _sweep(_density_pair(k), _D_IN, 1,
-                  [planes[n] for n in _D_IN], spec, active=active)
-    return mass * _mask_where(planes["mask"], s)
-
-
-def pressure_force_planes_active(planes, rho_plane, press_plane,
-                                 spec: DenseCellSpec, k: KernelCoeffs,
-                                 mass, active):
-    ins = dict(planes)
-    ins["rho"], ins["press"] = rho_plane, press_plane
-    fx, fy, fz = _sweep(_press_pair(k), _P_IN, 3,
-                        [ins[n] for n in _P_IN], spec, active=active)
+                        [ins[n] for n in _PQ_IN], spec, kind="pressure")
     m = planes["mask"]
     m2 = mass * mass
     return (m2 * _mask_where(m, fx), m2 * _mask_where(m, fy),

@@ -281,27 +281,14 @@ def _wrap_dense_step(local_step, mesh, spec: DenseSlabSpec,
     all-reduces the per-shard material cotangents — the BASELINE config-5
     'psum-all-reduced parameter gradients' on the production decomposition,
     produced by the partitioner rather than hand-written collectives."""
-    from dieselfluid_tpu.ops.pallas_sph import sweep_vma
-
     in_specs = [P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS), P(AXIS)]
     if materials_arg:
         in_specs += [P()]
     if boundary:
         in_specs += [P(AXIS, None), P(AXIS)]
 
-    def vma_body(*args):
-        # Annotate every sweep's out_shape as varying over AXIS so the vma
-        # checker stays ON for the whole local step — the surrounding
-        # collective logic is typechecked, not silenced (round-2 weak #7).
-        # NOTE: differentiated callers must ALSO extend sweep_vma(AXIS)
-        # over the jax.grad call — the custom-VJP backward sweeps trace
-        # during transposition, outside this block (thread-local, so the
-        # outer context is visible there).
-        with sweep_vma(AXIS):
-            return local_step(*args)
-
     sm = jax.shard_map(
-        vma_body, mesh=mesh,
+        local_step, mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=(P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS), P(AXIS),
                    (P(), P(), P(), P(AXIS))),
@@ -339,15 +326,14 @@ def _wrap_dense_step(local_step, mesh, spec: DenseSlabSpec,
 def make_dense_halo_wcsph_step(mesh, spec: DenseSlabSpec, params: FluidParams,
                                boundary: bool = False,
                                materials_arg: bool = False):
-    """Jitted shard_map'ed WCSPH step over slab state, on the Pallas dense
-    kernels with plane-column halo exchange.
+    """Jitted shard_map'ed WCSPH step over slab state, on the dense
+    stencil sweeps with plane-column halo exchange.
 
     materials_arg=True: step(slabs, materials) with a TRACED replicated
     Materials pytree — every material scale applies outside the sweeps
     (factored kernels), so `jax.grad` differentiates the distributed step
     w.r.t. mass/mu/d0/gamma/w and the per-shard cotangents are psum'd by
-    the shard_map transpose (see _wrap_dense_step). Differentiating callers
-    must wrap the grad call in `sweep_vma(AXIS)`."""
+    the shard_map transpose (see _wrap_dense_step)."""
     lspec = spec.local_spec
     k = KernelCoeffs.build(params.h)
 

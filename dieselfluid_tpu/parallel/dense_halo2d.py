@@ -47,7 +47,6 @@ from dieselfluid_tpu.ops.cellops import (
 from dieselfluid_tpu.ops.pallas_sph import (
     density_planes,
     force_planes,
-    sweep_vma,
 )
 from dieselfluid_tpu.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu.parallel.dense_halo import (
@@ -286,12 +285,8 @@ def make_dense_halo_wcsph_step_2d(mesh, spec: DenseSlab2DSpec,
         return (new_pos, new_vel, new_press, new_alive, dropped / n_sh,
                 (max_vel, n_live, overflow, live_here))
 
-    def vma_body(*args):
-        with sweep_vma(AXIS_X, AXIS_Y):
-            return local_step(*args)
-
     sm = jax.shard_map(
-        vma_body, mesh=mesh,
+        local_step, mesh=mesh,
         in_specs=(P((AXIS_X, AXIS_Y), None), P((AXIS_X, AXIS_Y), None),
                   P((AXIS_X, AXIS_Y)), P((AXIS_X, AXIS_Y)),
                   P((AXIS_X, AXIS_Y))),
@@ -483,17 +478,13 @@ def make_dense_halo_pcisph_step_2d(mesh, spec: DenseSlab2DSpec,
         return (new_pos, new_vel, new_press, new_alive, dropped / n_sh,
                 (max_vel, n_live, overflow, live_here))
 
-    def vma_body(*args):
-        with sweep_vma(AXIS_X, AXIS_Y):
-            return local_step(*args)
-
     sharded = P((AXIS_X, AXIS_Y))
     in_specs = [P((AXIS_X, AXIS_Y), None), P((AXIS_X, AXIS_Y), None),
                 sharded, sharded, sharded]
     if boundary:
         in_specs += [P(), P()]                # replicated boundary store
     sm = jax.shard_map(
-        vma_body, mesh=mesh,
+        local_step, mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=(P((AXIS_X, AXIS_Y), None), P((AXIS_X, AXIS_Y), None),
                    sharded, sharded, sharded,

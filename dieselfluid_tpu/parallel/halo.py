@@ -1,6 +1,6 @@
 """Spatial domain decomposition: slab sharding + ppermute halo exchange.
 
-The scalable multi-chip strategy (SURVEY.md §5 "TPU equivalent"): the domain
+The scalable multi-chip strategy (SURVEY.md §5): the domain
 is split into x-axis slabs, one per device on the ``sp`` mesh axis. Each
 device owns the particles inside its slab (fixed-capacity SoA with an alive
 mask — XLA needs static shapes), and per step:
@@ -30,8 +30,8 @@ CPU-EMULATION CAVEAT: on the virtual multi-device CPU backend
 (xla_force_host_platform_device_count), dispatching many steps without
 blocking can deadlock XLA's in-process collective rendezvous (worker threads
 oversubscribed across enqueued programs; observed at ~150 queued steps).
-Call jax.block_until_ready periodically when driving loops on CPU; real TPU
-meshes use hardware collectives and do not need this.
+Call jax.block_until_ready periodically when driving loops on CPU; GPU
+meshes use device collectives and do not need this.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ transpose psums the position/color gradients automatically.
 
 The reference's analog is the single-GPU GL framebuffer (ref: render/glr/
 glr_darwin.go Draw + SwapBuffers); there is no multi-device rendering in the
-reference at all — this is capability the TPU build adds.
+reference at all — this is capability this build adds.
 """
 
 from __future__ import annotations

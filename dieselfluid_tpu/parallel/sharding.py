@@ -2,7 +2,7 @@
 
 The reference is single-process, single-device with explicit host<->device
 buffer copies (ref: compute/gpu/gpu.go:332-389 — its entire "distributed
-backend" per SURVEY.md §2.7/§2.11). The TPU-native replacement is jax.sharding:
+backend" per SURVEY.md §2.7/§2.11). The replacement here is jax.sharding:
 particles are sharded over an ``sp`` (spatial/particle) mesh axis, XLA's GSPMD
 inserts the collectives, and global reductions (max velocity, density error —
 ref computes these as global loops, model/sph/fluid.go:186-191) become psums.

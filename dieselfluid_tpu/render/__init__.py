@@ -1,10 +1,10 @@
 """Differentiable rendering: cameras, PBR shading, splat/ray renderers,
 spectra and lights, GLTF scenes, cubemaps, textures.
 
-TPU-native replacement for the reference's OpenGL stack (ref: render/, shader/,
+The replacement for the reference's OpenGL stack (ref: render/, shader/,
 gltf/ — SURVEY.md §2.8): instead of a GL state machine, rendering is pure
 jnp image programs with gradients to particle positions, radii, and material
-parameters (BASELINE configs 3-4).
+parameters.
 """
 
 from dieselfluid_tpu.render.camera import Camera  # noqa: F401

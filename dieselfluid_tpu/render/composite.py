@@ -74,22 +74,12 @@ def render_composite(
     tri_uvs=None, textures=None, mat_base_tex=None, mat_normal_tex=None,
     tile: Optional[int] = None,
     splat_chunk: Optional[int] = None,
-    tiled_splats_k: Optional[int] = None,
     scene_env_mode: str = "sh",
 ) -> CompositeImage:
-    """One differentiable frame: fluid + GLTF scene + sky environment.
-
-    `tiled_splats_k` selects the Pallas tile rasterizer, which shades the
-    environment light DEFERRED: SH sky evaluated once on the OIT-blended
-    per-pixel normal, whereas the XLA path (`tiled_splats_k=None`) shades
-    each splat sample and then blends the colors. The two are pinned equal
-    only where splats do not overlap — expect small divergence on overlap
-    pixels when comparing a tiled to an untiled composite.
-    """
+    """One differentiable frame: fluid + GLTF scene + sky environment."""
     # scene_env_mode="sh" (default): the scene pass evaluates the sky's SH9
-    # projection instead of per-pixel cubemap gathers — the same deferred-SH
-    # trade the tiled splat pass makes, and the gathers dominated the 1080p
-    # scene time (see render_scene env_mode). Pass "cubemap" for exact
+    # projection instead of per-pixel cubemap gathers, which dominated the
+    # 1080p scene time (see render_scene env_mode). Pass "cubemap" for exact
     # texel parity.
     scene = render_scene(
         tris, tri_normals, tri_materials, materials, cam,
@@ -101,20 +91,9 @@ def render_composite(
     # Splat background = black with zero alpha; composite supplies the scene.
     # The sky cubemap lights the FLUID too (env diffuse + reflection in
     # splat_particles), not just the raytracer's miss/reflection rays.
-    # tiled_splats_k selects the Pallas tile rasterizer (deferred SH sky on
-    # the blended normals) with that per-tile capacity — the fast path for
-    # dense particle sets.
-    if tiled_splats_k is not None and colors is None:
-        from dieselfluid_tpu.render.splat_pallas import splat_particles_tiled
-
-        fluid = splat_particles_tiled(pos, radius, cam, width=width,
-                                      height=height,
-                                      background=(0.0, 0.0, 0.0),
-                                      k=tiled_splats_k, env_cube=env_cube)
-    else:
-        fluid = splat_particles(pos, radius, cam, width=width, height=height,
-                                colors=colors, background=(0.0, 0.0, 0.0),
-                                env_cube=env_cube, chunk=splat_chunk)
+    fluid = splat_particles(pos, radius, cam, width=width, height=height,
+                            colors=colors, background=(0.0, 0.0, 0.0),
+                            env_cube=env_cube, chunk=splat_chunk)
     _, dirs = cam.pixel_rays(width, height)
     dirs_z = jnp.sum(dirs * cam.front, axis=-1)
     color, a = composite_images(fluid, scene, cam, dirs_z, softness)

@@ -1,6 +1,6 @@
 """Ray-traced mesh renderer: GLTF scenes with PBR shading + sky environment.
 
-The TPU-native replacement for the reference's GL mesh pipeline
+The array-program replacement for the reference's GL mesh pipeline
 (ref: render/glr/glr.go Draw + rendersystem.go Run): instead of rasterizing
 VAOs, each pixel ray intersects the scene triangle soup (Moller-Trumbore,
 fully vectorized pixels x triangles, tiled to bound memory), shades with the
@@ -153,13 +153,9 @@ def render_scene(
     d = dirs.reshape(-1, 3)
     npix = o.shape[0]
     if tile is None:
-        # MEASURED (v5e, 1080p, 4 tris, fwd+bwd): 4096 -> 567 ms, 32768 ->
-        # 732, 131072 -> 754, 518400 -> 976, 2073600 -> 1250. Small tiles
-        # WIN — lax.map launch overhead is negligible next to the locality
-        # loss of big tiles, so the historical 4096 stays the default (the
-        # launch-overhead hypothesis from the round-4 composite flatline
-        # was probed and refuted; the real cost was per-pixel cubemap
-        # gathers — see env_mode="sh").
+        # Pixel tile of the lax.map over rays. On the earlier accelerator
+        # small tiles won: launch overhead was negligible next to the
+        # locality loss of big ones. Not yet measured on the GPU.
         tile = 4096
     textured = tri_uvs is not None and textures is not None
     if textured:

@@ -1,11 +1,10 @@
 """Order-2 (9-coefficient) spherical harmonics for environment lighting.
 
 The splat rasterizer shades ~N*patch^2 samples; sampling the sky cubemap
-per sample costs 4 random texel gathers per lookup and dominated the 512k
-composite frame (measured: 34 s/frame vs 4.9 s without env on v5e — ~29 s
-of gathers). Projecting the cubemap onto SH9 once per frame turns every
-lookup into ~30 FLOPs of polynomial evaluation — no gathers at all, ideal
-for the VPU — at the cost of band-limiting the environment (the 48^3 sky
+per sample costs 4 random texel gathers per lookup, which dominated the
+512k composite frame. Projecting the cubemap onto SH9 once per frame turns
+every lookup into ~30 FLOPs of polynomial evaluation — no gathers at all —
+at the cost of band-limiting the environment (the 48^3 sky
 is smooth apart from the sun disc, which diffuse lighting blurs anyway).
 
 Standard real-SH machinery (Ramamoorthi & Hanrahan 2001 constants); both
@@ -15,6 +14,7 @@ sun-direction gradients keep flowing through the fluid shading.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 # Real SH basis constants for l = 0, 1, 2.
@@ -54,10 +54,12 @@ def project_sh9(cube: jnp.ndarray) -> jnp.ndarray:
     # |unit . axis| = 1/sqrt(1+u^2+v^2)  =>  (1+u^2+v^2)^{3/2} = major^-3
     d_omega = (4.0 / (size * size)) * major ** 3
     basis = sh9_basis(dirs)                            # (6, S, S, 9)
-    return jnp.einsum("fhwn,fhwc,fhw->nc", basis, cube, d_omega)
+    return jnp.einsum("fhwn,fhwc,fhw->nc", basis, cube, d_omega,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def eval_sh9(coeffs: jnp.ndarray, dirs: jnp.ndarray) -> jnp.ndarray:
     """Reconstruct radiance along (..., 3) unit dirs -> (..., 3) RGB
     (clamped at zero — band-limited reconstruction can ring negative)."""
-    return jnp.maximum(sh9_basis(dirs) @ coeffs, 0.0)
+    return jnp.maximum(jnp.matmul(sh9_basis(dirs), coeffs,
+                                  precision=jax.lax.Precision.HIGHEST), 0.0)

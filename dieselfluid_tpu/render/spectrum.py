@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 SP_VIOLET = 380.0
@@ -159,7 +160,7 @@ def xyz_to_rgb(xyz):
         [-0.969256, 1.875991, 0.041556],
         [0.055648, -0.204043, 1.057311],
     ], jnp.float32)
-    return jnp.einsum("ij,...j->...i", m, xyz)
+    return jnp.einsum("ij,...j->...i", m, xyz, precision=jax.lax.Precision.HIGHEST)
 
 
 def rgb_to_xyz(rgb):
@@ -169,7 +170,7 @@ def rgb_to_xyz(rgb):
         [0.212671, 0.715160, 0.072169],
         [0.019334, 0.119193, 0.950227],
     ], jnp.float32)
-    return jnp.einsum("ij,...j->...i", m, rgb)
+    return jnp.einsum("ij,...j->...i", m, rgb, precision=jax.lax.Precision.HIGHEST)
 
 
 def sunlight_spd(lam):

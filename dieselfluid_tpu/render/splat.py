@@ -39,7 +39,8 @@ def _project(cam: Camera, pos: jnp.ndarray, width: int, height: int):
     """Particle positions -> pixel centers (u, v), view depth, pixel radius."""
     view = cam.view_matrix()
     vh = jnp.concatenate([pos, jnp.ones((pos.shape[0], 1), pos.dtype)], axis=-1)
-    v = jnp.einsum("ij,nj->ni", view, vh)[:, :3]
+    v = jnp.einsum("ij,nj->ni", view, vh,
+                   precision=jax.lax.Precision.HIGHEST)[:, :3]
     depth = v[:, 2]                                   # along +front
     fy = (height / 2.0) / jnp.tan(jnp.deg2rad(cam.fov_deg) / 2.0)
     fx = fy
@@ -108,8 +109,8 @@ def splat_particles(
     if env_cube is not None:
         # SH9 projection once per frame: every per-sample lookup becomes a
         # ~30-FLOP polynomial instead of 4 random texel gathers (bilinear
-        # cubemap sampling at N*patch^2 samples dominated the 512k frame:
-        # 34 s vs 4.9 s/frame on v5e). Still differentiable in the texels.
+        # cubemap sampling at N*patch^2 samples dominated the 512k frame).
+        # Still differentiable in the texels.
         from dieselfluid_tpu.render.sh import eval_sh9, project_sh9
 
         sh_coeffs = project_sh9(env_cube)
@@ -159,8 +160,10 @@ def splat_particles(
                 [-2.0 * nz * normal_unit[..., 0:1],
                  -2.0 * nz * normal_unit[..., 1:2],
                  1.0 - 2.0 * nz * nz], axis=-1)
-            env_n = eval_sh9(sh_coeffs, normal_unit @ R)
-            env_r = eval_sh9(sh_coeffs, r_view @ R)
+            hi = jax.lax.Precision.HIGHEST
+            env_n = eval_sh9(sh_coeffs,
+                             jnp.matmul(normal_unit, R, precision=hi))
+            env_r = eval_sh9(sh_coeffs, jnp.matmul(r_view, R, precision=hi))
             col = col * ((1.0 - env_diffuse) + env_diffuse * env_n) \
                 + env_specular * env_r
 

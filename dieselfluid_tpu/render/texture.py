@@ -2,7 +2,7 @@
 
 ref: render/texture/texture.go (PNG/JPEG decode -> RGBA8 GL upload). The GL
 commit step becomes keeping images as device arrays; sampling is bilinear
-jnp gather, differentiable in the UV coordinates (the TPU analog of the
+jnp gather, differentiable in the UV coordinates (the analog of the
 hardware sampler).
 """
 

@@ -10,7 +10,7 @@ across frames: a step runs the two Pallas sweeps plus elementwise plane math
 accumulated per-particle displacement since the last rebuild exceeds a skin
 threshold.
 
-This is the TPU analog of the reference's cache-extinction neighbor schedule
+This is the analog of the reference's cache-extinction neighbor schedule
 (ref: model/sph/fluid.go:208-215 — the LSH sampler is rebuilt only every
 N-th frame), but displacement-triggered instead of fixed-period, so the
 error is bounded by construction:

@@ -1,7 +1,7 @@
-"""WCSPH/PCISPH steps on the dense cell pipeline (Pallas hot loops).
+"""WCSPH/PCISPH steps on the dense cell pipeline.
 
-The production TPU path: scatter particles into dense cell planes
-(ops/cellops.py), run the Pallas density/force kernels (ops/pallas_sph.py),
+The production path: scatter particles into dense cell planes
+(ops/cellops.py), run the density/force stencil sweeps (ops/pallas_sph.py),
 gather per-particle results, integrate with the shared integrator. Forward
 semantics match the XLA gather path (field.density_with_self + pressure_force
 + laplacian_force) — tested against it — while avoiding its sort/top_k/gather
@@ -26,9 +26,7 @@ from dieselfluid_tpu.ops.cellops import (
     gather_planes,
 )
 from dieselfluid_tpu.ops.pallas_sph import (
-    active_patch_shape,
     density_planes,
-    density_planes_active,
     force_planes,
     pressure_force_planes,
     pressure_force_pq_planes,
@@ -139,32 +137,9 @@ def dense_wcsph_step(
     return state, diag
 
 
-class _PlaneSkipCarry(NamedTuple):
-    """Correction-loop carry for the PLANE-RESIDENT column-skip solver: the
-    plane-loop carry plus the per-(x, y-patch) activity grid and the carried
-    predicted-density plane (frozen patches keep their last swept values)."""
-
-    it: jnp.ndarray
-    err: jnp.ndarray
-    press_plane: jnp.ndarray
-    fpx: jnp.ndarray
-    fpy: jnp.ndarray
-    fpz: jnp.ndarray
-    rho_star_plane: jnp.ndarray
-    active: jnp.ndarray
-
-
-def _dilate3x3(a: jnp.ndarray) -> jnp.ndarray:
-    """8-neighborhood dilation of a 2D bool grid (no wraparound)."""
-    p = jnp.pad(a, 1)
-    return (p[:-2, 1:-1] | p[2:, 1:-1] | p[1:-1, :-2] | p[1:-1, 2:]
-            | p[1:-1, 1:-1] | p[:-2, :-2] | p[:-2, 2:] | p[2:, :-2]
-            | p[2:, 2:])
-
-
 @partial(jax.jit, static_argnames=("params", "spec", "delta", "bounds",
                                    "unroll_for_grad", "warm_start",
-                                   "column_skip", "unroll_iters"))
+                                   "unroll_iters"))
 def dense_pcisph_step(
     state: FluidState,
     params: FluidParams,
@@ -175,7 +150,6 @@ def dense_pcisph_step(
     materials=None,
     unroll_for_grad: bool = False,
     warm_start: bool = False,
-    column_skip: bool = False,
     unroll_iters: Optional[int] = None,
 ) -> Tuple[FluidState, StepDiagnostics]:
     """One PCISPH frame on the Pallas pipeline.
@@ -193,17 +167,6 @@ def dense_pcisph_step(
     solvers.pcisph.pcisph_step_core). `warm_start=True` keeps the
     accumulated pressure in the returned state so the next frame's loop
     starts from it (see solvers.pcisph.pcisph_step).
-
-    `column_skip=True` (forward-only, ignored under unroll_for_grad) stops
-    re-sweeping regions that have converged: only patches within one patch
-    of an out-of-tolerance column are re-swept each iteration (sweep
-    inputs are rebuilt exactly everywhere, so swept patches compute
-    exactly what the ungated loop would; the deviation is bounded an
-    order below the solver's own exit tolerance). The reference's loop
-    (pcisph.h pressure_solve:266-293) re-solves every particle every
-    iteration. Round-4 update: the gated loop is now PLANE-RESIDENT like
-    the default loop (two active-gated sweeps, zero scatters/gathers per
-    iteration) — see skip_loop for measured numbers vs the ungated path.
     """
     from dieselfluid_tpu.solvers.pcisph import _Carry
 
@@ -223,7 +186,7 @@ def dense_pcisph_step(
     # Every gather below is sanitized with valid_f: an overflowed particle's
     # clamped `flat` aliases a VALID slot (cellops.dense_indices), so an
     # unmasked gather hands it a *neighbor's* density/pressure/force — wrong
-    # physics, not degraded physics (round-2 verdict, weak #4). The fallback
+    # physics, not degraded physics. The fallback
     # here matches dense_density_forces: rho=d0, zero interaction force.
     rho = jnp.where(valid_f, gather_plane(rho_plane, flat_f), d0)
     # External forces: gravity + viscosity at the unpredicted state, via the
@@ -297,7 +260,7 @@ def dense_pcisph_step(
         math, so an iteration runs exactly two sweeps (density at predicted
         positions + pressure force) and ZERO scatters/gathers. The old
         particle-resident body paid 5 scatters + 2 gathers per iteration
-        (~75 ms of its ~190 ms at 1M) shuttling values out of and back into
+        shuttling values out of and back into
         the planes the sweeps want anyway. Per-particle state is touched
         once, after the loop exits."""
         mask_p = planes["mask"]
@@ -349,124 +312,6 @@ def dense_pcisph_step(
                         gather_planes([c.fpx, c.fpy, c.fpz], flat_f), 0.0)
         return _Carry(c.it, c.err, pressure, f_p)
 
-    def skip_loop():
-        """PLANE-RESIDENT convergence-gated correction loop (column_skip).
-
-        The plane_loop body (two sweeps, zero scatters/gathers per
-        iteration) with the activity machinery on top: each iteration only
-        sweeps (x, y-patch) grid programs within one patch of an
-        out-of-tolerance column; frozen patches keep their carried
-        rho_star/pressure/force PLANES (skipped programs' sweep outputs are
-        garbage, so every swept plane is row-selected against the carry).
-        Sweep INPUTS (predicted positions, pq) are full-plane elementwise
-        rebuilds — exact everywhere — so swept patches compute exactly what
-        the ungated loop would; frozen columns' forces are unchanged since
-        they froze, so their predicted positions are bit-identical too.
-        The reference's loop re-solves every particle every iteration
-        (ref: data/shaders/opencl/include/pcisph.h pressure_solve:266-293).
-
-        Freeze threshold: a tenth of the exit tolerance. PCISPH pressure
-        nudges at the FULL tolerance are delta * tol * d0 — comparable to
-        the converged pressure field itself (delta is the stiff PCISPH
-        gain), so freezing at tol visibly perturbs the dynamics; at tol/10
-        only genuinely quiescent regions freeze and the deviation is an
-        order below the solver's own error floor (measured: 6-step slammed
-        dam break stays within fp-noise of the ungated loop).
-
-        MEASURED (v5e, 1M, plane-resident both sides): agitated dam-break
-        window 506.9 vs 506.1 ms/step (mean_iters 2.95 — everything stays
-        active, nothing to skip), quiescent 328 vs 312 (mean_iters 1.0 —
-        one ALL-active iteration per step, so the activity bookkeeping is
-        pure overhead). A constructed mixed regime — 7.4k-particle splash
-        slammed into a settled 1M tank — is ALSO neutral (569.6 ungated vs
-        572.2 skip, mean_iters 3.77): with the tol/10 freeze threshold that
-        fidelity requires, regions sitting between tol/10 and tol stay
-        active every iteration, so the active set never localizes to the
-        splash. The capability is correct and costs nothing, but on this
-        solver's gain/tolerance structure it has no winning regime; the
-        ungated loop stays the default."""
-        P = min(8, spec.ny)
-        nyp = active_patch_shape(spec)[1]
-        tol_abs = 0.1 * params.pci_max_density_error_ratio * d0
-        mask_p = planes["mask"]
-        occ = mask_p > 0
-        bnd_p = to_plane(jnp.zeros((n,), jnp.float32), boundary_value=1.0)
-        fluid_occ = occ & (bnd_p == 0)
-        g = jnp.asarray(params.gravity, jnp.float32)
-        extf = (vx_p + g[0] * mass, vy_p + g[1] * mass, vz_p + g[2] * mass)
-        vels = (planes["vx"], planes["vy"], planes["vz"])
-        poss = (planes["x"], planes["y"], planes["z"])
-
-        def act_rows_of(active):
-            """(rows, 1, 1) bool: does each (x, y) column's CANONICAL patch
-            sweep this iteration? (The clamped last grid program re-covers
-            earlier columns, but their canonical patch decides selection —
-            overlapping swept programs write identical values.)"""
-            cols = jnp.repeat(active > 0, P, axis=1)[:, :spec.ny]
-            grid = jnp.zeros((spec.px, spec.py), bool)
-            grid = grid.at[1:spec.nx + 1, 1:spec.ny + 1].set(cols)
-            return grid.reshape(spec.rows, 1, 1)
-
-        def skip_body(c: _PlaneSkipCarry) -> _PlaneSkipCarry:
-            ar = act_rows_of(c.active)
-            star = {}
-            for ax, name in enumerate(("x", "y", "z")):
-                accel = (extf[ax] + (c.fpx, c.fpy, c.fpz)[ax]) / mass
-                xs = poss[ax] + (vels[ax] + accel * params.dt) * params.dt
-                star[name] = jnp.where(fluid_occ, xs, poss[ax])
-            star["mask"] = mask_p
-            rho_new = density_planes_active(star, spec, k, mass, c.active)
-            # Sanitize the carry: an ACTIVE-but-EMPTY patch skips compute
-            # (patch_any gate inside the kernel), so its rho_new rows are
-            # uninitialized garbage — gating on occupancy too keeps the
-            # carried plane clean (advisor round 4: rff=max(rho_star,..)
-            # would otherwise feed NaN into pq's discarded where-branch and
-            # leak under differentiation or any future ungated read).
-            rho_star = jnp.where(ar & occ, rho_new, c.rho_star_plane)
-            err = jnp.where(fluid_occ, rho_star - d0, 0.0)
-            upd = ar & fluid_occ
-            # Swept fluid slots update like the ungated loop (including
-            # sub-tolerance nudges); frozen patches keep theirs.
-            press = jnp.where(
-                upd, jnp.maximum(c.press_plane + delta * err, 0.0),
-                c.press_plane)
-            rff = jnp.maximum(rho_star, 0.5 * d0)
-            pq = jnp.where(fluid_occ, press / (rff * rff), 0.0)
-            fx, fy, fz = pressure_force_pq_planes(planes, pq, spec, k, mass,
-                                                  active=c.active)
-            max_ratio = jnp.max(jnp.where(upd, err, 0.0)) / d0
-            # Next activity: out-of-tolerance columns among those this sweep
-            # actually computed, dilated by one patch (the pair stencil's
-            # reach). Frozen columns were within tolerance when frozen and
-            # nothing in their stencil changed since.
-            e_col = jnp.max(jnp.abs(jnp.where(upd, err, 0.0)), axis=(1, 2))
-            ecols = e_col.reshape(spec.px, spec.py)[1:spec.nx + 1,
-                                                    1:spec.ny + 1]
-            pad = nyp * P - spec.ny
-            core = jnp.pad(ecols, ((0, 0), (0, pad))).reshape(
-                spec.nx, nyp, P).max(axis=2) > tol_abs
-            return _PlaneSkipCarry(
-                c.it + 1, max_ratio, press,
-                jnp.where(ar, fx, c.fpx), jnp.where(ar, fy, c.fpy),
-                jnp.where(ar, fz, c.fpz), rho_star,
-                _dilate3x3(core).astype(jnp.int32))
-
-        zero = jnp.zeros(spec.plane_shape, jnp.float32)
-        init = _PlaneSkipCarry(it=jnp.int32(0), err=jnp.float32(jnp.inf),
-                               press_plane=to_plane(state.pressure),
-                               fpx=zero, fpy=zero, fpz=zero,
-                               rho_star_plane=rho_plane,
-                               active=jnp.ones((spec.nx, nyp), jnp.int32))
-        cond = lambda c: (c.it < params.pci_max_iters) & (
-            c.err > params.pci_max_density_error_ratio)
-        c = jax.lax.while_loop(cond, skip_body, init)
-        # Back to particle-resident state, once (plane_loop's epilogue).
-        pressure = jnp.where(valid_f, gather_plane(c.press_plane, flat_f),
-                             jnp.maximum(state.pressure, 0.0))
-        f_p = jnp.where(valid_f[:, None],
-                        gather_planes([c.fpx, c.fpy, c.fpz], flat_f), 0.0)
-        return _Carry(c.it, c.err, pressure, f_p)
-
     # Iteration zero accumulates onto state.pressure (cold-started by the
     # integrator's reset unless warm_start keeps it — see pcisph_step_core).
     init = _Carry(it=jnp.int32(0), err=jnp.float32(jnp.inf),
@@ -475,12 +320,9 @@ def dense_pcisph_step(
     if unroll_for_grad:
         # Rematerialize each correction iteration in the backward pass:
         # without this the reverse-mode scan holds every iteration's plane
-        # set (~0.5 GB x pci_max_iters at 1M) in HBM for the backward —
-        # round-3 verdict, weak #3 (config-4's 15.6 s frame). Interpret-mode
-        # Pallas calls carry OrderedIOEffects that jax.checkpoint cannot
-        # partial-eval, so only the compiled TPU path remats.
-        ckpt_body = (jax.checkpoint(body)
-                     if jax.default_backend() == "tpu" else body)
+        # set (~0.5 GB x pci_max_iters at 1M) in device memory for the
+        # backward.
+        ckpt_body = jax.checkpoint(body)
 
         def scan_body(c, _):
             return ckpt_body(c), None
@@ -488,12 +330,9 @@ def dense_pcisph_step(
         # unroll_iters: fixed reverse-differentiable iteration count.
         # Defaults to the pci_max_iters cap; callers that observed the
         # adaptive while_loop converging earlier (diag.iters) can match it
-        # and pay only that many fwd+bwd sweeps (round-3 verdict,
-        # next-step #1: "make the unroll length follow observed counts").
+        # and pay only that many fwd+bwd sweeps.
         carry, _ = jax.lax.scan(scan_body, init, None,
                                 length=unroll_iters or params.pci_max_iters)
-    elif column_skip:
-        carry = skip_loop()
     else:
         carry = plane_loop()
 

@@ -87,7 +87,7 @@ def box_collide(
 def cfl_dt(params: FluidParams, max_vel: Optional[jnp.ndarray] = None):
     """Timestep policy. The reference pins dt=0.01 (ref: model/sph/fluid.go:111-114);
     when max_vel is given we additionally bound dt by the standard CFL condition
-    dt <= 0.4 h / max|v| as a TPU-side improvement (still returning a traced scalar)."""
+    dt <= 0.4 h / max|v| as an improvement (still returning a traced scalar)."""
     if max_vel is None:
         return jnp.float32(params.dt)
     return jnp.minimum(jnp.float32(params.dt), 0.4 * params.h / jnp.maximum(max_vel, 1e-6))

@@ -3,7 +3,7 @@
 The reference has no self-diagnosis beyond init-time log.Fatalf (SURVEY §5:
 "failure detection: none") — a diverged Tait EOS or an overflowed neighbor
 structure silently corrupts every later frame. This module adds the missing
-subsystem, TPU-style: health checks are DEVICE-SIDE scalar reductions (one
+subsystem, device-style: health checks are DEVICE-SIDE scalar reductions (one
 tiny fetch per check interval, never a full-state download), and recovery is
 functional — roll back to the last healthy snapshot and re-run with a
 shortened timestep.
@@ -107,7 +107,7 @@ class GuardedSlabRunner:
     def run(self, steps: int):
         """Advance `steps` frames; returns (max_vel, n_live) of the last
         chunk. Blocks once per chunk (required on CPU-emulated meshes — see
-        parallel.halo docstring — and a single 2-scalar fetch on TPU)."""
+        parallel.halo docstring — and a single 2-scalar fetch on a GPU)."""
         import jax
 
         done = 0

@@ -1,67 +1,69 @@
-"""Multi-chip dense PCISPH over an 8-device mesh (virtual CPU or real TPUs).
+"""Multi-device dense PCISPH over a slab-decomposed mesh.
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
-        python examples/distributed_slab.py
+    python examples/distributed_slab.py          # every GPU JAX finds
+    python examples/distributed_slab.py --cpu    # 8 virtual CPU devices
 
-Slab domain decomposition with plane-column halo exchange on the Pallas
-pipeline, guarded stepping with rollback, per-slab load diagnostics, and a
-sharded checkpoint — the production multi-chip recipe in ~50 lines.
+Slab domain decomposition with plane-column halo exchange on the dense
+pipeline, per-slab load diagnostics, and a sharded checkpoint (needs orbax)
+— the production multi-device recipe in ~60 lines.
 """
 
+import argparse
 import os
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-import jax
+ap = argparse.ArgumentParser()
+ap.add_argument("--cpu", action="store_true",
+                help="run on 8 virtual CPU devices instead of the GPUs")
+ap.add_argument("--n3", type=int, default=8,
+                help="cubic root of the particle count")
+args = ap.parse_args()
+if args.cpu:
+    os.environ.setdefault("XLA_FLAGS",
+                          "--xla_force_host_platform_device_count=8")
 
-try:
-    _on_tpu = jax.default_backend() == "tpu"
-except RuntimeError:            # e.g. an unregistered platform in env
-    _on_tpu = False
-if not _on_tpu:
+import jax  # noqa: E402
+
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
-from contextlib import nullcontext
+import numpy as np  # noqa: E402
 
-import numpy as np
-from jax.experimental.pallas import tpu as pltpu
-
-from dieselfluid_tpu.config import FluidParams
-from dieselfluid_tpu.io.checkpoint import load_slab_checkpoint, save_slab_checkpoint
-from dieselfluid_tpu.models.particles import dam_break_state
-from dieselfluid_tpu.neighbors.calibrate import calibrate_rest_density
-from dieselfluid_tpu.parallel.dense_halo import (
+from dieselfluid_tpu.config import FluidParams  # noqa: E402
+from dieselfluid_tpu.models.particles import dam_break_state  # noqa: E402
+from dieselfluid_tpu.neighbors.calibrate import lattice_rest_density  # noqa: E402
+from dieselfluid_tpu.parallel.dense_halo import (  # noqa: E402
     DenseSlabSpec,
     distribute_dense,
     make_dense_halo_pcisph_step,
 )
-from dieselfluid_tpu.parallel.sharding import particle_mesh
-from dieselfluid_tpu.solvers.pcisph import compute_pci_delta
+from dieselfluid_tpu.parallel.sharding import particle_mesh  # noqa: E402
+from dieselfluid_tpu.solvers.pcisph import compute_pci_delta  # noqa: E402
 
 n_dev = len(jax.devices())
-n3, extent = 8, 0.5   # demo scale: CPU interpret mode is slow; real TPUs fly
+print(f"{n_dev} x {jax.devices()[0].device_kind}")
+n3, extent = args.n3, 0.5
 dx = (2.0 / n3) * extent
-params = FluidParams.for_spacing(dx)
+params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
 state = dam_break_state(n3, params, extent=extent)
-params = calibrate_rest_density(state.pos, params)
 delta = compute_pci_delta(params, dx)
 
 mesh = particle_mesh(n_dev)
-spec = DenseSlabSpec.build(n_dev, params.h, capacity=512,
-                           migrate_capacity=128, cell_capacity=32)
+spec = DenseSlabSpec.build_for_state(state, n_dev, params.h,
+                                     migrate_capacity=128, cell_capacity=32)
 slabs = distribute_dense(state, spec)
 step = make_dense_halo_pcisph_step(mesh, spec, params, delta, warm_start=True)
 
-interp = (nullcontext if jax.default_backend() == "tpu"
-          else pltpu.force_tpu_interpret_mode)
-with interp():
-    for frame in range(4):
-        slabs, max_vel, n_live, ovf, per_slab = step(slabs)
-        jax.block_until_ready(slabs.pos)   # required on CPU-emulated meshes
-        if frame % 2 == 0:
-            occ = np.asarray(per_slab).astype(int)
-            print(f"frame {frame}: n_live={int(n_live)} max|v|={float(max_vel):.3f} "
-                  f"overflow={int(ovf)} per-slab={occ.tolist()} "
-                  f"imbalance={occ.max() / max(occ.mean(), 1):.2f}")
+for frame in range(4):
+    slabs, max_vel, n_live, ovf, per_slab = step(slabs)
+    jax.block_until_ready(slabs.pos)   # required on CPU-emulated meshes
+    if frame % 2 == 0:
+        occ = np.asarray(per_slab).astype(int)
+        print(f"frame {frame}: n_live={int(n_live)} max|v|={float(max_vel):.3f} "
+              f"overflow={int(ovf)} per-slab={occ.tolist()} "
+              f"imbalance={occ.max() / max(occ.mean(), 1):.2f}")
+
+from dieselfluid_tpu.io.checkpoint import (  # noqa: E402
+    load_slab_checkpoint, save_slab_checkpoint)
 
 save_slab_checkpoint("out/slab_ckpt", slabs, 4, params)
 restored, frame, _ = load_slab_checkpoint("out/slab_ckpt")

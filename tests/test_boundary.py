@@ -11,7 +11,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from dieselfluid_tpu.config import FluidParams
 from dieselfluid_tpu.geometry.mesh import box, mesh_collide
@@ -72,8 +71,7 @@ def test_dense_path_matches_xla_with_boundary(setup):
     off = params.h / 4.0
     spec = DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
                                     params.h, capacity=16)
-    with pltpu.force_tpu_interpret_mode():
-        dense, ddiag = dense_wcsph_step(s_b, params, spec)
+    dense, ddiag = dense_wcsph_step(s_b, params, spec)
     nfn = lambda p: brute_force_neighborhood(p, p, params.h, 128)
     xla, _ = wcsph_step(s_b, params, neighbor_fn=nfn)
 

@@ -10,7 +10,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from dieselfluid_tpu.config import FluidParams
 from dieselfluid_tpu.models.particles import dam_break_state
@@ -65,19 +64,18 @@ def test_matches_single_chip_dense(setup):
         (spec.hi_x, spec.hi_yz, spec.hi_yz + 3.0 * spec.cell),
         spec.cell, capacity=spec.cell_capacity)
     bounds = ((spec.lo,) * 3, (spec.hi_x, spec.hi_yz, spec.hi_yz))
-    with pltpu.force_tpu_interpret_mode():
-        s = s0
-        for _ in range(steps):
-            s, diag = dense_wcsph_step(s, params, gspec, bounds=bounds)
-        jax.block_until_ready(s.pos)
-        assert int(diag.overflow) == 0
+    s = s0
+    for _ in range(steps):
+        s, diag = dense_wcsph_step(s, params, gspec, bounds=bounds)
+    jax.block_until_ready(s.pos)
+    assert int(diag.overflow) == 0
 
-        slabs = distribute_dense(s0, spec)
-        assert float(slabs.dropped) == 0.0
-        step = make_dense_halo_wcsph_step(mesh, spec, params)
-        for _ in range(steps):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)   # CPU-mesh collective pitfall
+    slabs = distribute_dense(s0, spec)
+    assert float(slabs.dropped) == 0.0
+    step = make_dense_halo_wcsph_step(mesh, spec, params)
+    for _ in range(steps):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)   # CPU-mesh collective pitfall
 
     assert int(n_live) == s0.n
     assert float(slabs.dropped) == 0.0
@@ -127,22 +125,21 @@ def test_pcisph_matches_single_chip_dense(setup, warm_start):
         (spec.hi_x, spec.hi_yz, spec.hi_yz + 3.0 * spec.cell),
         spec.cell, capacity=spec.cell_capacity)
     bounds = ((spec.lo,) * 3, (spec.hi_x, spec.hi_yz, spec.hi_yz))
-    with pltpu.force_tpu_interpret_mode():
-        s = s0
-        iters = []
-        for _ in range(steps):
-            s, diag = dense_pcisph_step(s, params, gspec, delta,
-                                        bounds=bounds, warm_start=warm_start)
-            iters.append(int(diag.iters))
-        jax.block_until_ready(s.pos)
-        assert max(iters) >= 2, f"loop under-exercised: {iters}"
+    s = s0
+    iters = []
+    for _ in range(steps):
+        s, diag = dense_pcisph_step(s, params, gspec, delta,
+                                    bounds=bounds, warm_start=warm_start)
+        iters.append(int(diag.iters))
+    jax.block_until_ready(s.pos)
+    assert max(iters) >= 2, f"loop under-exercised: {iters}"
 
-        slabs = distribute_dense(s0, spec)
-        step = make_dense_halo_pcisph_step(mesh, spec, params, delta,
-                                           warm_start=warm_start)
-        for _ in range(steps):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)
+    slabs = distribute_dense(s0, spec)
+    step = make_dense_halo_pcisph_step(mesh, spec, params, delta,
+                                       warm_start=warm_start)
+    for _ in range(steps):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)
 
     assert int(n_live) == s0.n
     assert int(per_slab.sum()) == s0.n and per_slab.shape == (N_DEV,)
@@ -185,20 +182,19 @@ def test_pcisph_boundary_dam_break_distributed(setup):
         (spec.hi_x, spec.hi_yz, spec.hi_yz + 3.0 * spec.cell),
         spec.cell, capacity=spec.cell_capacity)
     bounds = ((spec.lo,) * 3, (spec.hi_x, spec.hi_yz, spec.hi_yz))
-    with pltpu.force_tpu_interpret_mode():
-        s = s_b
-        for _ in range(steps):
-            s, _ = dense_pcisph_step(s, params, gspec, delta,
-                                     bounds=bounds, warm_start=True)
-        jax.block_until_ready(s.pos)
+    s = s_b
+    for _ in range(steps):
+        s, _ = dense_pcisph_step(s, params, gspec, delta,
+                                 bounds=bounds, warm_start=True)
+    jax.block_until_ready(s.pos)
 
-        slabs = distribute_dense(s_b, spec)
-        assert slabs.boundary_pos is not None
-        step = make_dense_halo_pcisph_step(mesh, spec, params, delta,
-                                           boundary=True, warm_start=True)
-        for _ in range(steps):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)
+    slabs = distribute_dense(s_b, spec)
+    assert slabs.boundary_pos is not None
+    step = make_dense_halo_pcisph_step(mesh, spec, params, delta,
+                                       boundary=True, warm_start=True)
+    for _ in range(steps):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)
 
     assert int(n_live) == s0.n
     pos_sh, vel_sh = collect(slabs)
@@ -244,18 +240,17 @@ def test_wcsph_2d_mesh_matches_single_chip():
         (spec.hi_x, spec.hi_y, spec.hi_z + 3.0 * spec.cell),
         spec.cell, capacity=spec.cell_capacity)
     bounds = ((spec.lo,) * 3, (spec.hi_x, spec.hi_y, spec.hi_z))
-    with pltpu.force_tpu_interpret_mode():
-        s = s0
-        for _ in range(steps):
-            s, diag = dense_wcsph_step(s, params, gspec, bounds=bounds)
-        jax.block_until_ready(s.pos)
+    s = s0
+    for _ in range(steps):
+        s, diag = dense_wcsph_step(s, params, gspec, bounds=bounds)
+    jax.block_until_ready(s.pos)
 
-        slabs = distribute_2d(s0, spec)
-        assert float(slabs.dropped) == 0.0
-        step = make_dense_halo_wcsph_step_2d(mesh, spec, params)
-        for _ in range(steps):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)
+    slabs = distribute_2d(s0, spec)
+    assert float(slabs.dropped) == 0.0
+    step = make_dense_halo_wcsph_step_2d(mesh, spec, params)
+    for _ in range(steps):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)
 
     assert int(n_live) == s0.n
     assert per_slab.shape == (2, 2) and int(per_slab.sum()) == s0.n
@@ -284,10 +279,9 @@ def test_migration_across_faces(setup):
     c = spec.capacity
     alive0 = np.asarray(slabs.alive).reshape(spec.n_dev, c).sum(axis=1)
     step = make_dense_halo_wcsph_step(mesh, spec, params)
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(5):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)
+    for _ in range(5):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)
     # The 20 m/s slam may transiently overflow cell capacity (counted in
     # cell_ovf, interactions under-resolved) — but NOTHING may be lost.
     assert int(n_live) == s.n
@@ -315,13 +309,11 @@ def test_distributed_gradients_match_single_chip(setup):
     per-shard cotangents, and the result must match the single-chip dense
     step's material gradients — the BASELINE config-5 'psum-all-reduced
     parameter gradients' claim proven on the production slab decomposition
-    (round-3 verdict, next-step #3). The vma checker stays ON: sweep_vma
-    extends over the grad call so the custom-VJP backward sweeps (traced
-    during transposition) carry the axis annotation."""
+    The vma checker stays ON: every sweep, including the custom-VJP
+    backward sweeps traced during transposition, infers its outputs' mesh
+    axes from its inputs."""
     from dieselfluid_tpu.models.materials import Materials
-    from dieselfluid_tpu.ops.pallas_sph import sweep_vma
     from dieselfluid_tpu.parallel.dense_halo import make_dense_halo_wcsph_step
-    from dieselfluid_tpu.parallel.halo import AXIS
 
     params, s0, spec, mesh = setup
     # Random velocities: at rest the viscosity force is identically zero
@@ -352,14 +344,13 @@ def test_distributed_gradients_match_single_chip(setup):
         out, *_ = step(slabs, m)
         return field_loss(out.pos, (out.alive > 0)[..., None])
 
-    with pltpu.force_tpu_interpret_mode():
-        gm_single = jax.grad(loss_single)(mats)
-        # jax.set_mesh: the transposed shard_map's scalar cotangents carry
-        # explicit 'sp' shardings, which the outer grad trace can only
-        # place inside the mesh context.
-        with jax.set_mesh(mesh), sweep_vma(AXIS):
-            gm_shard = jax.grad(loss_shard)(mats)
-        jax.block_until_ready(gm_shard)
+    gm_single = jax.grad(loss_single)(mats)
+    # jax.set_mesh: the transposed shard_map's scalar cotangents carry
+    # explicit 'sp' shardings, which the outer grad trace can only
+    # place inside the mesh context.
+    with jax.set_mesh(mesh):
+        gm_shard = jax.grad(loss_shard)(mats)
+    jax.block_until_ready(gm_shard)
 
     for f in mats._fields:
         a = float(getattr(gm_single, f))
@@ -409,23 +400,22 @@ def test_pcisph_2d_mesh_boundary_matches_single_chip():
         (spec.hi_x, spec.hi_y, spec.hi_z + 3.0 * spec.cell),
         spec.cell, capacity=spec.cell_capacity)
     bounds = ((spec.lo,) * 3, (spec.hi_x, spec.hi_y, spec.hi_z))
-    with pltpu.force_tpu_interpret_mode():
-        s = s0
-        iters = []
-        for _ in range(steps):
-            s, diag = dense_pcisph_step(s, params, gspec, delta,
-                                        bounds=bounds, warm_start=True)
-            iters.append(int(diag.iters))
-        jax.block_until_ready(s.pos)
-        assert max(iters) >= 2, f"loop under-exercised: {iters}"
+    s = s0
+    iters = []
+    for _ in range(steps):
+        s, diag = dense_pcisph_step(s, params, gspec, delta,
+                                    bounds=bounds, warm_start=True)
+        iters.append(int(diag.iters))
+    jax.block_until_ready(s.pos)
+    assert max(iters) >= 2, f"loop under-exercised: {iters}"
 
-        slabs = distribute_2d(s0, spec)
-        assert float(slabs.dropped) == 0.0
-        step = make_dense_halo_pcisph_step_2d(mesh, spec, params, delta,
-                                              boundary=True, warm_start=True)
-        for _ in range(steps):
-            slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
-            jax.block_until_ready(slabs.pos)
+    slabs = distribute_2d(s0, spec)
+    assert float(slabs.dropped) == 0.0
+    step = make_dense_halo_pcisph_step_2d(mesh, spec, params, delta,
+                                          boundary=True, warm_start=True)
+    for _ in range(steps):
+        slabs, max_vel, n_live, cell_ovf, per_slab = step(slabs)
+        jax.block_until_ready(slabs.pos)
 
     assert int(n_live) == s0.n
     assert per_slab.shape == (2, 2) and int(per_slab.sum()) == s0.n
@@ -510,9 +500,8 @@ def test_smoke_wcsph_halo_step():
     slabs = distribute_dense(s0, spec)
     assert float(slabs.dropped) == 0.0
     step = make_dense_halo_wcsph_step(mesh, spec, params)
-    with pltpu.force_tpu_interpret_mode():
-        slabs, max_vel, n_live, cell_ovf, per_slab = jax.block_until_ready(
-            step(slabs))
+    slabs, max_vel, n_live, cell_ovf, per_slab = jax.block_until_ready(
+        step(slabs))
     assert int(n_live) == s0.n
     assert int(cell_ovf) == 0
     assert bool(jnp.isfinite(max_vel))
@@ -535,9 +524,8 @@ def test_smoke_pcisph_halo_boundary_step():
     slabs = distribute_dense(s0, spec)
     step = make_dense_halo_pcisph_step(mesh, spec, params, delta,
                                        boundary=True, warm_start=True)
-    with pltpu.force_tpu_interpret_mode():
-        slabs, max_vel, n_live, cell_ovf, per_slab = jax.block_until_ready(
-            step(slabs))
+    slabs, max_vel, n_live, cell_ovf, per_slab = jax.block_until_ready(
+        step(slabs))
     assert int(n_live) == s0.n
     assert bool(jnp.isfinite(max_vel))
 
@@ -561,7 +549,6 @@ def test_smoke_2d_mesh_step():
     assert float(slabs.dropped) == 0.0
     step = make_dense_halo_pcisph_step_2d(mesh2d, spec2d, params, delta,
                                           warm_start=True)
-    with pltpu.force_tpu_interpret_mode():
-        slabs, v2d, n2d, ovf2d, per2d = jax.block_until_ready(step(slabs))
+    slabs, v2d, n2d, ovf2d, per2d = jax.block_until_ready(step(slabs))
     assert int(n2d) == s0.n
     assert bool(jnp.isfinite(v2d))

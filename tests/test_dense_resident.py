@@ -11,7 +11,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from dieselfluid_tpu.config import FluidParams
 from dieselfluid_tpu.models.particles import dam_break_state
@@ -40,16 +39,14 @@ def setup():
 
 def _run_resident(s, params, spec, steps, skin):
     ps = plane_state_from_fluid(s, spec)
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(steps):
-            ps = dense_wcsph_resident_step(ps, params, spec, skin=skin)
+    for _ in range(steps):
+        ps = dense_wcsph_resident_step(ps, params, spec, skin=skin)
     return ps
 
 
 def _run_per_step(s, params, spec, steps):
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(steps):
-            s, _ = dense_wcsph_step(s, params, spec)
+    for _ in range(steps):
+        s, _ = dense_wcsph_step(s, params, spec)
     return s
 
 
@@ -100,19 +97,18 @@ class TestResidentParity:
         ps = _run_resident(s, params, spec, 6, skin=0.05)
         out = fluid_state_from_planes(ps, s.n, params, spec)
         k = KernelCoeffs.build(params.h)
-        with pltpu.force_tpu_interpret_mode():
-            # Stale binning (the planes as the resident step left them).
-            rho_stale = gather_plane(
-                density_planes(ps.planes, spec, k, params.mass), ps.flat[:s.n])
-            # Fresh binning at the same positions.
-            flat, valid, _ = dense_indices(out.pos, spec)
-            planes = build_planes(
-                {"x": out.pos[:, 0], "y": out.pos[:, 1], "z": out.pos[:, 2],
-                 "vx": out.vel[:, 0], "vy": out.vel[:, 1],
-                 "vz": out.vel[:, 2]},
-                flat, valid, spec)
-            rho_fresh = gather_plane(
-                density_planes(planes, spec, k, params.mass), flat)
+        # Stale binning (the planes as the resident step left them).
+        rho_stale = gather_plane(
+            density_planes(ps.planes, spec, k, params.mass), ps.flat[:s.n])
+        # Fresh binning at the same positions.
+        flat, valid, _ = dense_indices(out.pos, spec)
+        planes = build_planes(
+            {"x": out.pos[:, 0], "y": out.pos[:, 1], "z": out.pos[:, 2],
+             "vx": out.vel[:, 0], "vy": out.vel[:, 1],
+             "vz": out.vel[:, 2]},
+            flat, valid, spec)
+        rho_fresh = gather_plane(
+            density_planes(planes, spec, k, params.mass), flat)
         ok = np.asarray(ps.valid[:s.n]) & np.asarray(valid)
         rel = np.abs(np.asarray(rho_stale) - np.asarray(rho_fresh))[ok] / params.d0
         assert rel.max() < 2e-3, rel.max()
@@ -121,8 +117,7 @@ class TestResidentParity:
         params, s, spec = setup
         fast = s._replace(vel=jnp.full_like(s.vel, 2.0))
         ps = plane_state_from_fluid(fast, spec)
-        with pltpu.force_tpu_interpret_mode():
-            ps = dense_wcsph_resident_step(ps, params, spec, skin=0.05)
+        ps = dense_wcsph_resident_step(ps, params, spec, skin=0.05)
         assert int(ps.rebuilds) == 1
 
     def test_overflow_fallback_ballistic(self, setup):
@@ -132,8 +127,7 @@ class TestResidentParity:
         ps = plane_state_from_fluid(s, tight)
         assert int(ps.overflow) > 0
         n_inv = int(np.sum(~np.asarray(ps.valid[:s.n])))
-        with pltpu.force_tpu_interpret_mode():
-            ps2 = dense_wcsph_resident_step(ps, params, tight, skin=1e9)
+        ps2 = dense_wcsph_resident_step(ps, params, tight, skin=1e9)
         out = fluid_state_from_planes(ps2, s.n, params, tight)
         # Overflowed particles follow the exact ballistic fallback update
         # (gravity only, matching dense_step's valid-mask semantics).
@@ -152,9 +146,8 @@ class TestResidentParity:
         b = box(1.8, 1.8, 1.8).generate_boundary_particles(1.0)
         sb = s._replace(boundary_pos=b)
         ps = plane_state_from_fluid(sb, spec)
-        with pltpu.force_tpu_interpret_mode():
-            for _ in range(2):
-                ps = dense_wcsph_resident_step(ps, params, spec, skin=1e9)
+        for _ in range(2):
+            ps = dense_wcsph_resident_step(ps, params, spec, skin=1e9)
         # Boundary particle slots never move: gather them via the tail of
         # the slot map and compare against the static boundary positions.
         nb = b.shape[0]
@@ -190,17 +183,16 @@ class TestPcisphResident:
         delta = compute_pci_delta(params, 0.125)
         ps = plane_state_from_fluid(s, spec)
         ref = s
-        with pltpu.force_tpu_interpret_mode():
-            # Step 1 is BITWISE identical (measured dpos = 0.0): the two
-            # paths run the same plane math on the same binning.
-            ps, iters = dense_pcisph_resident_step(ps, params, spec, delta,
-                                                   skin=0.0)
-            ref, diag = dense_pcisph_step(ref, params, spec, delta,
-                                          warm_start=True)
-            out = fluid_state_from_planes(ps, s.n, params, spec)
-            np.testing.assert_allclose(np.asarray(out.pos),
-                                       np.asarray(ref.pos), atol=1e-7)
-            assert int(iters) == int(diag.iters)
+        # Step 1 is BITWISE identical (measured dpos = 0.0): the two
+        # paths run the same plane math on the same binning.
+        ps, iters = dense_pcisph_resident_step(ps, params, spec, delta,
+                                               skin=0.0)
+        ref, diag = dense_pcisph_step(ref, params, spec, delta,
+                                      warm_start=True)
+        out = fluid_state_from_planes(ps, s.n, params, spec)
+        np.testing.assert_allclose(np.asarray(out.pos),
+                                   np.asarray(ref.pos), atol=1e-7)
+        assert int(iters) == int(diag.iters)
         # Multi-step parity needs REGULAR dynamics: the stiff inflated-d0
         # fixture transitions to a chaotic compression blowup by step 3
         # (measured max|v| ~ 110 — ulp-level FMA differences between the
@@ -217,12 +209,11 @@ class TestPcisphResident:
         cdelta = compute_pci_delta(cparams, dx)
         cps = plane_state_from_fluid(cs, cspec)
         cref = cs
-        with pltpu.force_tpu_interpret_mode():
-            for _ in range(3):
-                cps, _ = dense_pcisph_resident_step(cps, cparams, cspec,
-                                                    cdelta, skin=0.0)
-                cref, _ = dense_pcisph_step(cref, cparams, cspec, cdelta,
-                                            warm_start=True)
+        for _ in range(3):
+            cps, _ = dense_pcisph_resident_step(cps, cparams, cspec,
+                                                cdelta, skin=0.0)
+            cref, _ = dense_pcisph_step(cref, cparams, cspec, cdelta,
+                                        warm_start=True)
         cout = fluid_state_from_planes(cps, cs.n, cparams, cspec)
         np.testing.assert_allclose(np.asarray(cout.pos),
                                    np.asarray(cref.pos), atol=1e-5)
@@ -238,9 +229,8 @@ class TestPcisphResident:
         params, s, spec = setup
         delta = compute_pci_delta(params, 0.125)
         ps = plane_state_from_fluid(s, spec)
-        with pltpu.force_tpu_interpret_mode():
-            ps, _ = dense_pcisph_resident_step(ps, params, spec, delta,
-                                               skin=0.0)   # forces a rebuild
+        ps, _ = dense_pcisph_resident_step(ps, params, spec, delta,
+                                           skin=0.0)   # forces a rebuild
         press = np.asarray(gather_plane(ps.planes["press"], ps.flat[:s.n]))
         ok = np.asarray(ps.valid[:s.n])
         # The inflated-d0 fixture compresses: warm pressure must be nonzero
@@ -268,10 +258,9 @@ class TestPcisphResident:
         delta = compute_pci_delta(params, dx)
         steps = 4
         ps = plane_state_from_fluid(s, spec)
-        with pltpu.force_tpu_interpret_mode():
-            for _ in range(steps):
-                ps, _ = dense_pcisph_resident_step(ps, params, spec, delta,
-                                                   skin=0.05)
+        for _ in range(steps):
+            ps, _ = dense_pcisph_resident_step(ps, params, spec, delta,
+                                               skin=0.05)
         assert int(ps.rebuilds) < steps
         assert int(ps.overflow) == 0
         out = fluid_state_from_planes(ps, s.n, params, spec)
@@ -304,22 +293,21 @@ def test_unroll_iteration_gradient_bias():
     off = params.h / 4.0
     spec = DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
                                     params.h, capacity=16)
-    with pltpu.force_tpu_interpret_mode():
-        s = state
-        for _ in range(5):
-            s, diag = dense_pcisph_step(s, params, spec, delta,
-                                        warm_start=True)
+    s = state
+    for _ in range(5):
+        s, diag = dense_pcisph_step(s, params, spec, delta,
+                                    warm_start=True)
 
-        def loss_of(unroll):
-            def loss(pos):
-                nxt, _ = dense_pcisph_step(
-                    s._replace(pos=pos), params, spec, delta,
-                    unroll_for_grad=True, unroll_iters=unroll)
-                return jnp.sum(jnp.sin(3.0 * nxt.pos))
-            return loss
+    def loss_of(unroll):
+        def loss(pos):
+            nxt, _ = dense_pcisph_step(
+                s._replace(pos=pos), params, spec, delta,
+                unroll_for_grad=True, unroll_iters=unroll)
+            return jnp.sum(jnp.sin(3.0 * nxt.pos))
+        return loss
 
-        g3 = jax.grad(loss_of(3))(s.pos)
-        g5 = jax.grad(loss_of(5))(s.pos)
+    g3 = jax.grad(loss_of(3))(s.pos)
+    g5 = jax.grad(loss_of(5))(s.pos)
     n5 = float(jnp.linalg.norm(g5))
     rel = float(jnp.linalg.norm(g3 - g5)) / n5
     cos = float(jnp.sum(g3 * g5)) / (float(jnp.linalg.norm(g3)) * n5)

@@ -7,12 +7,10 @@ per-slab imbalance, and physical health the whole way.
 
 This stress runs the XLA halo pipeline (parallel/halo.py): it shares the
 SlabState store, migration buffers, boundary replication, and collective
-protocol with the dense-Pallas twin (parallel/dense_halo.py reuses
-halo._migrate and SlabState verbatim) but compiles natively on the CPU
-mesh. The dense twin's kernels can only run INTERPRETED off-TPU, and
-interpret-mode multi-device runs abort XLA's collective rendezvous beyond
-tiny per-program grids (see .claude/skills/verify/SKILL.md) — 64k x 50
-steps is hours of interpreter time. Dense-halo parity itself is covered at
+protocol with the dense twin (parallel/dense_halo.py reuses
+halo._migrate and SlabState verbatim) but is far cheaper on the CPU mesh:
+the dense twin sweeps whole cell planes per device, and 64k x 50 steps of
+it is too slow for the test tier. Dense-halo parity itself is covered at
 feasible scale in tests/test_dense_halo.py; THIS test is where the shared
 migration/capacity machinery meets realistic occupancy.
 """

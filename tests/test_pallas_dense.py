@@ -1,10 +1,12 @@
-"""Pallas dense-cell kernels vs the XLA oracle (interpret mode on CPU)."""
+"""Dense-cell stencil sweeps vs the XLA oracle.
+
+On the CPU the production sweep lowers to the plain-XLA `_sweep_xla`; the
+Triton kernel runs here in Pallas interpret mode against it."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from dieselfluid_tpu.config import FluidParams
 from dieselfluid_tpu.models import field as F
@@ -73,9 +75,8 @@ class TestOverflowFallback:
         _, valid, overflow = dense_indices(s.pos, tight)
         assert int(overflow) > 0, "test needs overflow to exercise the path"
         delta = compute_pci_delta(params, 2.0 / 8 * 0.5)
-        with pltpu.force_tpu_interpret_mode():
-            nxt, diag = dense_pcisph_step(s, params, tight, delta,
-                                          bounds=None)
+        nxt, diag = dense_pcisph_step(s, params, tight, delta,
+                                      bounds=None)
         assert int(diag.overflow) == int(overflow)
         inval = ~np.asarray(valid)
         gravity = np.asarray(params.gravity, np.float32) * params.mass
@@ -115,8 +116,7 @@ class TestGradients:
             nxt, _ = wcsph_step(st, params, neighbor_fn=nfn)
             return jnp.sum(nxt.pos * w_pos) + jnp.sum(nxt.vel**2)
 
-        with pltpu.force_tpu_interpret_mode():
-            gp_d, gv_d = jax.grad(loss_dense, argnums=(0, 1))(s.pos, s.vel)
+        gp_d, gv_d = jax.grad(loss_dense, argnums=(0, 1))(s.pos, s.vel)
         gp_x, gv_x = jax.grad(loss_xla, argnums=(0, 1))(s.pos, s.vel)
         scale = float(jnp.abs(gp_x).max())
         np.testing.assert_allclose(np.asarray(gp_d) / scale,
@@ -151,8 +151,7 @@ class TestMaterialsGradients:
             nxt, _ = wcsph_step(s, params, neighbor_fn=nfn, materials=m)
             return jnp.sum(nxt.pos * w_pos)
 
-        with pltpu.force_tpu_interpret_mode():
-            g_d = jax.grad(loss_dense)(mats)
+        g_d = jax.grad(loss_dense)(mats)
         g_x = jax.grad(loss_xla)(mats)
         # The XLA path does not trace mass (compute_forces bakes params.mass)
         # so compare the fields both paths trace: mu, d0, gamma, w.
@@ -188,8 +187,7 @@ class TestMaterialsGradients:
                                  unroll_for_grad=True, materials=m)
             return jnp.sum(nxt.pos * w_pos)
 
-        with pltpu.force_tpu_interpret_mode():
-            g_d = jax.grad(loss_dense)(mats)
+        g_d = jax.grad(loss_dense)(mats)
         g_x = jax.grad(loss_xla)(mats)
         for f in ("mu", "d0"):
             d, x = float(getattr(g_d, f)), float(getattr(g_x, f))
@@ -212,12 +210,11 @@ class TestMaterialsGradients:
             nxt, _ = dense_wcsph_step(s, params, spec, materials=m)
             return jnp.sum(nxt.pos * w_pos)
 
-        with pltpu.force_tpu_interpret_mode():
-            g = float(jax.grad(loss)(mats).mass)
-            v0 = float(mats.mass)
-            eps = v0 * 1e-2
-            lp = float(loss(mats._replace(mass=jnp.float32(v0 + eps))))
-            lm = float(loss(mats._replace(mass=jnp.float32(v0 - eps))))
+        g = float(jax.grad(loss)(mats).mass)
+        v0 = float(mats.mass)
+        eps = v0 * 1e-2
+        lp = float(loss(mats._replace(mass=jnp.float32(v0 + eps))))
+        lm = float(loss(mats._replace(mass=jnp.float32(v0 - eps))))
         fd = (lp - lm) / (2 * eps)
         assert np.isfinite(g)
         np.testing.assert_allclose(g, fd, rtol=5e-2)
@@ -226,8 +223,7 @@ class TestMaterialsGradients:
 class TestKernelsInterpreted:
     def test_density_forces_match_oracle(self, setup):
         params, s, spec = setup
-        with pltpu.force_tpu_interpret_mode():
-            rho, press, force, ovf = dense_density_forces(s, params, spec)
+        rho, press, force, ovf = dense_density_forces(s, params, spec)
         rho, force = np.asarray(rho), np.asarray(force)
 
         nb = brute_force_neighborhood(s.pos, s.pos, params.h, 96)
@@ -242,20 +238,19 @@ class TestKernelsInterpreted:
         np.testing.assert_allclose(force / scale, f_o / scale, atol=1e-5)
 
     @pytest.mark.parametrize("n3,domain", [
-        (6, 1.0),    # ny < P: patch covers the whole axis
-        (8, 1.375),  # ny % P != 0: last patch clamps + overlaps
+        (6, 1.0),    # small grid: every column touches the ghost ring
+        (8, 1.375),  # odd, non-power-of-two column counts
     ])
     def test_density_matches_oracle_on_odd_grids(self, n3, domain):
-        """Patch-clamping edges: ny not divisible by (or smaller than) the
-        per-program patch of y-columns must still match the oracle."""
+        """Grids whose column counts are small or odd must still match the
+        oracle at every edge of the sweep's column loop."""
         dx = (2.0 / n3) * 0.5
         params = FluidParams.for_spacing(dx)
         s = dam_break_state(n3, params, extent=0.5)
         params = params.replace(d0=float(1.1 * params.d0))
         spec = DenseCellSpec.for_domain((-domain,) * 3, (domain,) * 3,
                                         params.h, capacity=16)
-        with pltpu.force_tpu_interpret_mode():
-            rho, _, force, ovf = dense_density_forces(s, params, spec)
+        rho, _, force, ovf = dense_density_forces(s, params, spec)
         assert int(ovf) == 0
         nb = brute_force_neighborhood(s.pos, s.pos, params.h, 96)
         rho_o = F.density_with_self(s.pos, nb, params)
@@ -263,45 +258,111 @@ class TestKernelsInterpreted:
                                    rtol=1e-5)
 
 
-class TestColumnSkip:
-    """PCISPH convergence skipping (round-3 verdict, next-step #1)."""
 
-    @pytest.mark.slow
-    def test_column_skip_tracks_ungated_loop(self, setup):
-        """column_skip=True must track the ungated while_loop to within the
-        solver's own exit tolerance (the pressure nudges it skips are the
-        sub-tolerance ones), on a slammed dam break that actually exercises
-        multiple correction iterations."""
-        from dieselfluid_tpu.neighbors.calibrate import lattice_rest_density
-        from dieselfluid_tpu.solvers.dense_step import dense_pcisph_step
-        from dieselfluid_tpu.solvers.pcisph import compute_pci_delta
+# ---------------------------------------------------------------------------
+# The Triton sweep (interpret mode) against `_sweep_xla`
+# ---------------------------------------------------------------------------
 
-        n3, extent = 8, 0.5
-        dx = (2.0 / n3) * extent
-        params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
-        s0 = dam_break_state(n3, params, extent=extent)
-        s0 = s0._replace(vel=s0.vel + jnp.asarray([0.0, -1.0, 0.0]))
-        delta = compute_pci_delta(params, dx)
-        spec = DenseCellSpec.for_domain((-1, -1, -1), (1, 1, 1), params.h,
+
+def _random_planes(spec, seed=0, n=80, half=0.45):
+    from dieselfluid_tpu.ops.cellops import build_planes, dense_indices
+
+    rng = np.random.RandomState(seed)
+    pos = jnp.asarray(rng.uniform(-half, half, (n, 3)).astype(np.float32))
+    vals = {c: jnp.asarray(rng.uniform(0.5, 2.0, (n,)).astype(np.float32))
+            for c in ("vx", "vy", "vz", "rho", "press", "pq", "iv",
+                      "ct_0", "ct_1", "ct_2")}
+    vals.update(x=pos[:, 0], y=pos[:, 1], z=pos[:, 2])
+    flat, valid, ovf = dense_indices(pos, spec)
+    assert int(ovf) == 0
+    return build_planes(vals, flat, valid, spec)
+
+
+def _sweep_cases(k):
+    from dieselfluid_tpu.ops import pallas_sph as ps
+
+    return {
+        "density": (ps._density_pair(k), ps._D_IN, 1),
+        "fused_force": (ps._force_fold_pair(k, 0.01, 0.1), ps._F_IN_FOLD, 3),
+        "fused_force_pressure_only": (ps._force_fold_pair(k, 0.01, 0.0),
+                                      ps._F_IN_FOLD_P, 3),
+        "pq_pressure": (ps._press_pq_pair(k), ps._PQ_IN, 3),
+        "pressure": (ps._press_pair(k), ps._P_IN, 3),
+        "viscosity": (ps._visc_pair(k), ps._V_IN, 3),
+        "density_vjp": (ps._bwd_pair(ps._density_pair(k), 1,
+                                     ("x", "y", "z")),
+                        ps._D_IN + ("ct_0",), 3),
+        "force_vjp": (ps._bwd_pair(ps._force_pair(k, 0.01, 0.1), 3,
+                                   ps._F_GRAD),
+                      ps._F_IN + ("ct_0", "ct_1", "ct_2"), len(ps._F_GRAD)),
+    }
+
+
+_SWEEP_NAMES = ("density", "fused_force", "fused_force_pressure_only",
+                "pq_pressure", "pressure", "viscosity", "density_vjp",
+                "force_vjp")
+
+
+class TestTritonSweepInterpreted:
+    @pytest.mark.parametrize("launch", ["density", "pressure", "force"])
+    @pytest.mark.parametrize("case", _SWEEP_NAMES)
+    def test_matches_sweep_xla(self, case, launch):
+        """Every pair function under every production launch (own block,
+        warps, wide or per-window accumulation)."""
+        from dieselfluid_tpu.ops import pallas_sph as ps
+        from dieselfluid_tpu.ops.smoothing import KernelCoeffs
+
+        h = 0.25
+        spec = DenseCellSpec.for_domain((-0.5,) * 3, (0.5,) * 3, h,
                                         capacity=16)
-        with pltpu.force_tpu_interpret_mode():
-            a, b = s0, s0
-            iters = []
-            for _ in range(3):
-                a, diag_a = dense_pcisph_step(a, params, spec, delta,
-                                              column_skip=False)
-                b, diag_b = dense_pcisph_step(b, params, spec, delta,
-                                              column_skip=True)
-                iters.append(int(diag_a.iters))
-            jax.block_until_ready(a.pos)
-        assert max(iters) >= 2, f"loop under-exercised: {iters}"
-        # The tol/10 freeze threshold keeps the skipped pressure nudges an
-        # order below the solver's own error floor: measured deviation is
-        # fp-noise (dpos ~1e-7 over 6 steps). A loose absolute bound here
-        # still catches the failure mode this guards against (freezing at
-        # the FULL tolerance produced dvel ~0.5 on this config).
-        dpos = float(jnp.abs(a.pos - b.pos).max())
-        dvel = float(jnp.abs(a.vel - b.vel).max())
-        assert np.isfinite(np.asarray(b.pos)).all()
-        assert dpos < 1e-4, f"column_skip diverged: dpos={dpos:.2e}"
-        assert dvel < 1e-3, f"column_skip diverged: dvel={dvel:.2e}"
+        pair, names, n_out = _sweep_cases(KernelCoeffs.build(h))[case]
+        ins = [_random_planes(spec)[c] for c in names]
+        block, num_warps, wide = ps._TRITON_LAUNCH[launch]
+        want = ps._sweep_xla(pair, names, n_out, ins, spec)
+        got = ps._sweep_triton(pair, names, n_out, ins, spec, block=block,
+                               num_warps=num_warps, wide=wide,
+                               interpret=True)
+        assert len(got) == n_out
+        for a, b in zip(got, want):
+            assert a.shape == spec.plane_shape
+            scale = float(jnp.abs(b).max())
+            np.testing.assert_allclose(np.asarray(a) / scale,
+                                       np.asarray(b) / scale, atol=1e-6)
+
+    @pytest.mark.parametrize("wide", [False, True])
+    @pytest.mark.parametrize("capacity,block", [(8, 32), (32, 32), (32, 64)])
+    def test_block_layouts(self, capacity, block, wide):
+        """Own blocks of several cells (capacity 8), one cell (capacity 32,
+        block 32) and two cells (block 64) on a non-cubic, odd grid."""
+        from dieselfluid_tpu.ops import pallas_sph as ps
+        from dieselfluid_tpu.ops.smoothing import KernelCoeffs
+
+        h = 0.2
+        spec = DenseCellSpec.for_domain((-0.5, -0.3, -0.5), (0.5, 0.3, 0.5),
+                                        h, capacity=capacity)
+        pair, names, n_out = _sweep_cases(KernelCoeffs.build(h))["density"]
+        ins = [_random_planes(spec, seed=capacity, half=0.25)[c]
+               for c in names]
+        (want,) = ps._sweep_xla(pair, names, n_out, ins, spec)
+        (got,) = ps._sweep_triton(pair, names, n_out, ins, spec, block=block,
+                                  wide=wide, interpret=True)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=1e-6)
+
+
+def test_sweep_choice_is_made_at_lowering():
+    """`_sweep` lowers to the Triton custom call for CUDA and to plain XLA
+    for the CPU, from one traced program — no run-time device check."""
+    from dieselfluid_tpu.ops import pallas_sph as ps
+    from dieselfluid_tpu.ops.smoothing import KernelCoeffs
+
+    h = 0.25
+    spec = DenseCellSpec.for_domain((-0.5,) * 3, (0.5,) * 3, h, capacity=16)
+    pair, names, n_out = _sweep_cases(KernelCoeffs.build(h))["density"]
+    ins = [_random_planes(spec)[c] for c in names]
+    traced = jax.jit(lambda *p: ps._sweep(pair, names, n_out, p,
+                                          spec)).trace(*ins)
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "xla.gpu.triton" in cuda and "dense_stencil_sweep" in cuda
+    assert "xla.gpu.triton" not in cpu

@@ -295,95 +295,3 @@ class TestSH9:
         # Band-limited: SH9 keeps ~20% bleed opposite a single bright face.
         assert float(up[0]) > 4.0 * float(down[0]) + 1e-3
 
-
-class TestTiledRasterizer:
-    """Pallas tile rasterizer vs the XLA scatter splat (render/splat_pallas):
-    same image, same gradients (interpret mode on CPU; the hardware twin
-    runs under DSLTPU_HW=1)."""
-
-    def _setup(self):
-        from jax.experimental.pallas import tpu as pltpu
-
-        cam = Camera.at((0.0, 0.0, -2.0), front=(0.0, 0.0, 1.0),
-                        fov_deg=60.0, aspect=1.0)
-        pos = jax.random.uniform(jax.random.PRNGKey(0), (400, 3), jnp.float32,
-                                 -0.5, 0.5)
-        return pltpu, cam, pos
-
-    def test_image_matches_xla_splat(self):
-        from dieselfluid_tpu.render.splat_pallas import splat_particles_tiled
-
-        pltpu, cam, pos = self._setup()
-        a = splat_particles(pos, 0.05, cam, 256, 256)
-        with pltpu.force_tpu_interpret_mode():
-            b, ovf = splat_particles_tiled(pos, 0.05, cam, 256, 256, k=256,
-                                           return_overflow=True)
-        assert int(ovf) == 0
-        np.testing.assert_allclose(np.asarray(a.color), np.asarray(b.color),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(a.alpha), np.asarray(b.alpha),
-                                   atol=1e-5)
-        covered = np.asarray(a.alpha) > 1e-4
-        np.testing.assert_allclose(np.asarray(b.depth)[covered],
-                                   np.asarray(a.depth)[covered], atol=1e-4)
-
-    def test_grads_match_xla_splat(self):
-        from dieselfluid_tpu.render.splat_pallas import splat_particles_tiled
-
-        pltpu, cam, pos = self._setup()
-
-        def loss(p, tiled):
-            img = (splat_particles_tiled(p, 0.05, cam, 256, 256, k=256)
-                   if tiled else splat_particles(p, 0.05, cam, 256, 256))
-            return jnp.sum(img.color ** 2)
-
-        ga = jax.grad(loss)(pos, False)
-        with pltpu.force_tpu_interpret_mode():
-            gb = jax.grad(loss)(pos, True)
-        scale = float(jnp.abs(ga).max())
-        # atol covers the kernel's reassociated pair math (per-slot
-        # reciprocal + rsqrt normals vs the XLA path's divides): fp32
-        # drift measured at 7e-5 of the max-|grad| scale.
-        np.testing.assert_allclose(np.asarray(gb) / scale,
-                                   np.asarray(ga) / scale, atol=3e-4)
-
-    def test_overflow_counted(self):
-        from dieselfluid_tpu.render.splat_pallas import splat_particles_tiled
-
-        pltpu, cam, _ = self._setup()
-        # 600 coincident particles -> one tile's entries exceed k=128.
-        pos = jnp.zeros((600, 3), jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            _, ovf = splat_particles_tiled(pos, 0.05, cam, 256, 256, k=128,
-                                           return_overflow=True)
-        assert int(ovf) > 0
-
-    def test_deferred_env_matches_forward_on_sparse_splats(self):
-        """Deferred SH lighting (tiled path shades the blended normal)
-        equals the XLA path's forward shading wherever splats don't overlap,
-        and both position AND sky-texel gradients are finite/nonzero."""
-        from dieselfluid_tpu.render.splat_pallas import splat_particles_tiled
-        from jax.experimental.pallas import tpu as pltpu
-
-        cam = Camera.at((0.0, 0.0, -2.0), front=(0.0, 0.0, 1.0),
-                        fov_deg=60.0, aspect=1.0)
-        pos = jnp.asarray([[-0.4, 0.0, 0.0], [0.4, 0.2, 0.1],
-                           [0.0, -0.4, -0.2]], jnp.float32)
-        cube = jax.random.uniform(jax.random.PRNGKey(1), (6, 4, 4, 3),
-                                  jnp.float32)
-        a = splat_particles(pos, 0.08, cam, 128, 128, env_cube=cube)
-        with pltpu.force_tpu_interpret_mode():
-            b = splat_particles_tiled(pos, 0.08, cam, 128, 128, k=128,
-                                      env_cube=cube)
-        np.testing.assert_allclose(np.asarray(a.color), np.asarray(b.color),
-                                   atol=1e-5)
-
-        def loss(p, c):
-            img = splat_particles_tiled(p, 0.08, cam, 128, 128, k=128,
-                                        env_cube=c)
-            return jnp.sum(img.color ** 2)
-
-        with pltpu.force_tpu_interpret_mode():
-            gp, gc = jax.grad(loss, argnums=(0, 1))(pos, cube)
-        assert bool(jnp.isfinite(gp).all()) and float(jnp.abs(gp).max()) > 0
-        assert bool(jnp.isfinite(gc).all()) and float(jnp.abs(gc).max()) > 0

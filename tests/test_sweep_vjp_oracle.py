@@ -16,7 +16,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from dieselfluid_tpu.ops import pallas_sph as ps
 from dieselfluid_tpu.ops.cellops import (
@@ -96,9 +95,8 @@ class TestDensity:
                              flat, valid, spec)
             return gather_plane(ps._density_sum(planes, spec, k), flat)
 
-        with pltpu.force_tpu_interpret_mode():
-            f = sweep(pos)
-            g = jax.grad(lambda p: jnp.sum(sweep(p) * ct[:, 0]))(pos)
+        f = sweep(pos)
+        g = jax.grad(lambda p: jnp.sum(sweep(p) * ct[:, 0]))(pos)
         f_r = ref_density(pos, k)
         g_r = jax.grad(lambda p: jnp.sum(ref_density(p, k) * ct[:, 0]))(pos)
         np.testing.assert_allclose(np.asarray(f), np.asarray(f_r),
@@ -121,10 +119,9 @@ class TestPressureForce:
             return gather_planes([fx, fy, fz], flat)
 
         args = (pos, rho, press)
-        with pltpu.force_tpu_interpret_mode():
-            f = sweep(*args)
-            g = jax.grad(lambda *a: jnp.sum(sweep(*a) * ct),
-                         argnums=(0, 1, 2))(*args)
+        f = sweep(*args)
+        g = jax.grad(lambda *a: jnp.sum(sweep(*a) * ct),
+                     argnums=(0, 1, 2))(*args)
         f_r = ref_press_force(*args, k)
         g_r = jax.grad(lambda *a: jnp.sum(ref_press_force(*a, k) * ct),
                        argnums=(0, 1, 2))(*args)
@@ -151,10 +148,9 @@ class TestViscosityForce:
             return gather_planes([fx, fy, fz], flat)
 
         args = (pos, vel, rho)
-        with pltpu.force_tpu_interpret_mode():
-            f = sweep(*args)
-            g = jax.grad(lambda *a: jnp.sum(sweep(*a) * ct),
-                         argnums=(0, 1, 2))(*args)
+        f = sweep(*args)
+        g = jax.grad(lambda *a: jnp.sum(sweep(*a) * ct),
+                     argnums=(0, 1, 2))(*args)
         f_r = ref_visc_force(*args, k)
         g_r = jax.grad(lambda *a: jnp.sum(ref_visc_force(*a, k) * ct),
                        argnums=(0, 1, 2))(*args)
@@ -165,3 +161,100 @@ class TestViscosityForce:
             np.testing.assert_allclose(
                 np.asarray(a) / scale, np.asarray(b) / scale, atol=3e-5,
                 err_msg=f"viscosity vjp mismatch: d {name}")
+
+
+# `_sweep_xla` itself (the CPU lowering and the reference the Triton kernel
+# is checked against), forward and VJP, on odd and non-cubic cell grids and
+# every slot capacity the layout is used with.
+GRIDS = {
+    "odd-cubic": ((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5), 0.2),   # 5x5x5 cells
+    "non-cubic": ((-0.5, -0.3, -0.45), (0.5, 0.3, 0.45), 0.25),  # 4x3x4
+}
+
+
+def _grid_case(grid, capacity):
+    lo, hi, h = GRIDS[grid]
+    rng = np.random.RandomState(capacity)
+    inner = np.asarray(hi) - 0.05
+    pos = jnp.asarray(rng.uniform(-inner, inner, (N, 3)).astype(np.float32))
+    rho = jnp.asarray(rng.uniform(80.0, 120.0, (N,)).astype(np.float32))
+    press = jnp.asarray(rng.uniform(0.0, 5.0, (N,)).astype(np.float32))
+    ct = jnp.asarray(rng.normal(size=(N, 3)).astype(np.float32))
+    spec = DenseCellSpec.for_domain(lo, hi, h, capacity=capacity)
+    flat, valid, ovf = dense_indices(pos, spec)
+    assert int(ovf) == 0
+    return pos, rho, press, ct, spec, KernelCoeffs.build(h), flat, valid, h
+
+
+def _oracle_density(p, h, k):
+    d2 = jnp.sum((p[None, :, :] - p[:, None, :]) ** 2, -1)
+    q = 1.0 - d2 / (h * h)
+    return jnp.sum(jnp.where(d2 < h * h, float(k.a) * q * q, 0.0), axis=1)
+
+
+def _oracle_press(p, r, pr, h, k):
+    dx = p[None, :, :] - p[:, None, :]
+    d2 = jnp.sum(dx * dx, -1)
+    live = (d2 > EPS) & (d2 < h * h)
+    inv_d = jax.lax.rsqrt(jnp.where(live, d2, 1.0))
+    q1 = 1.0 - d2 * inv_d / h
+    coeff = (pr[:, None] / jnp.maximum(r[:, None], EPS) ** 2
+             + pr[None, :] / jnp.maximum(r[None, :], EPS) ** 2)
+    s = jnp.where(live, coeff * float(k.b) * q1 * q1 * inv_d, 0.0)
+    return jnp.einsum("ij,ijc->ic", s, dx)
+
+
+@pytest.mark.parametrize("capacity", [8, 16, 32])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+class TestSweepXlaGrids:
+    def test_density_fwd_and_vjp(self, grid, capacity):
+        pos, _, _, ct, spec, k, flat, valid, h = _grid_case(grid, capacity)
+        vals = {"x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+                "ct_0": ct[:, 0]}
+        planes = build_planes(vals, flat, valid, spec)
+        (rho,) = ps._sweep_xla(ps._density_pair(k), ps._D_IN, 1,
+                               [planes[n] for n in ps._D_IN], spec)
+        np.testing.assert_allclose(
+            np.asarray(gather_plane(rho, flat)),
+            np.asarray(_oracle_density(pos, h, k)), rtol=2e-5)
+
+        names = ps._D_IN + ("ct_0",)
+        grads = ps._sweep_xla(
+            ps._bwd_pair(ps._density_pair(k), 1, ("x", "y", "z")), names, 3,
+            [planes[n] for n in names], spec)
+        g = gather_planes(grads, flat)
+        g_r = jax.grad(lambda p: jnp.sum(
+            _oracle_density(p, h, k) * ct[:, 0]))(pos)
+        scale = float(jnp.abs(g_r).max())
+        np.testing.assert_allclose(np.asarray(g) / scale,
+                                   np.asarray(g_r) / scale, atol=2e-5)
+
+    def test_pressure_fwd_and_vjp(self, grid, capacity):
+        pos, rho, press, ct, spec, k, flat, valid, h = _grid_case(
+            grid, capacity)
+        vals = {"x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+                "rho": rho, "press": press,
+                "ct_0": ct[:, 0], "ct_1": ct[:, 1], "ct_2": ct[:, 2]}
+        planes = build_planes(vals, flat, valid, spec)
+        f = gather_planes(ps._sweep_xla(
+            ps._press_pair(k), ps._P_IN, 3, [planes[n] for n in ps._P_IN],
+            spec), flat)
+        f_r = _oracle_press(pos, rho, press, h, k)
+        np.testing.assert_allclose(np.asarray(f), np.asarray(f_r),
+                                   atol=2e-6 * float(jnp.abs(f_r).max()))
+
+        names = ps._P_IN + ("ct_0", "ct_1", "ct_2")
+        grads = ps._sweep_xla(
+            ps._bwd_pair(ps._press_pair(k), 3, ps._P_GRAD), names,
+            len(ps._P_GRAD), [planes[n] for n in names], spec)
+        g = dict(zip(ps._P_GRAD, grads))
+        g_r = jax.grad(lambda p, r, pr: jnp.sum(
+            _oracle_press(p, r, pr, h, k) * ct), argnums=(0, 1, 2))(
+                pos, rho, press)
+        got = (gather_planes([g["x"], g["y"], g["z"]], flat),
+               gather_plane(g["rho"], flat), gather_plane(g["press"], flat))
+        for name, a, b in zip(("pos", "rho", "press"), got, g_r):
+            scale = float(jnp.abs(b).max())
+            np.testing.assert_allclose(
+                np.asarray(a) / scale, np.asarray(b) / scale, atol=3e-5,
+                err_msg=f"{grid}/{capacity}: pressure vjp d {name}")
